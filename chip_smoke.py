@@ -5,20 +5,27 @@
 Phases (any failure raises and exits non-zero):
   1. build the CUDA kernels from scaling_retriever_tpu_torch/csrc with nvcc
      for sm_90a;
-  2. generate an MSMARCO-scale index on the card (8,841,823 docs, 128
-     postings per doc, vocab 128,256: 1,131,730,944 postings) in the f32
-     and q8 layouts, and hold each kernel against its plain PyTorch version
-     at the main path's shapes (64 queries x 512 jobs = 524,288 slots per
-     query, 4096-slot blocks, m = 32), timing kernel, plain version and,
-     where one exists, a single PyTorch call computing the same function;
-  3. run 64-query tiles through SegsortEngine on both layouts and compare
-     the kernel path's top-1000 with the plain path's (tie-equal), plus a
-     small index against a brute-force oracle;
-  4. serve text through the published Llama-3.2-1B architecture (random
-     bf16 weights from --seed): QueryEncoderFrontend over RetrievalServer
-     on the q8 index (device handoff), and pre-encoded requests through
-     RetrievalServer.submit on the f32 index; launch counts of every kernel
-     are read over exactly this phase;
+  2. generate two indexes on the card: an MSMARCO-scale uniform index
+     (8,841,823 docs, 128 postings per doc, vocab 128,256: 1,131,730,944
+     postings) in the f32, bf16-pair and q8 layouts, and bench_bmx.py's
+     clustered corpus (8,849,850 docs in 1,024 topic clusters,
+     887,226,368 postings, f32) with its block-max meta; hold each kernel
+     against its plain PyTorch version at the main path's shapes (64
+     queries x 512 jobs of 1024, or 384 jobs of 2048 for bf16; the
+     block-max site on a real pass-1 job table), timing kernel, plain
+     version and, where one exists, a single PyTorch call computing the
+     same function;
+  3. run 64-query tiles through SegsortEngine on the three layouts and
+     compare the kernel path's top-1000 with the plain path's (tie-equal;
+     bf16 also with the f32 engine), a small index against a brute-force
+     oracle, and the block-max engine (two passes, staged pipeline)
+     against the unpruned engine on the clustered corpus;
+  4. serve through RetrievalServer, each path with the launch counts set
+     to 0 just before it and read just after it: text through the
+     published Llama-3.2-1B architecture (random bf16 weights from --seed)
+     with QueryEncoderFrontend on the q8 index (device handoff) plus
+     pre-encoded requests on the f32 index; pre-encoded requests on the
+     bf16 index; pre-encoded requests on the block-max engine;
   5. print the card, per-kernel numbers as one JSON line, and last
      {"ok": true, "device": {...}}.
 """
@@ -42,8 +49,20 @@ TILE = 64
 T_BUDGET = 64
 TOPK = 1000
 JOBS = 512
+JOBS2 = 384                   # bf16 bucket of a 48-term tile (2048-jobs)
+CHUNK = 1024
+CHUNK2 = 2048
+BMX_COVER = 4.0               # block-max pass 1 covers BMX_COVER * TOPK docs
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM data sheet, non-tensor f32
+
+
+# the kernels each serving path must launch (phase 4)
+PATH_KERNELS = {
+    "text q8 + pre-encoded f32": ("fetch_f32", "fetch_q8", "segsum", "topm"),
+    "pre-encoded bf16": ("fetch_bf16", "segsum", "topm"),
+    "pre-encoded block-max": ("fetch_f32_blockmax", "segsum", "topm"),
+}
 
 
 def log(*a) -> None:
@@ -84,11 +103,12 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 def gen_index(dev):
     """bench.py's synthetic CSR, on the card: row = hash(i) mod-folded into
     [0, N_DOCS), every value 1.0. The hash runs in int64 masked to 32 bits
-    (torch's uint32 ops on CUDA are limited). Returns (rows i32, valbits
-    i32, packed q8 i32, host offsets, host scales)."""
+    (torch's uint32 ops on CUDA are limited). Padded by CHUNK2, so the f32
+    and bf16 engines share the rows. Returns (rows i32, valbits i32, bf16
+    pairs i32, packed q8 i32, host offsets, host scales, nnz)."""
     per_term = (N_DOCS * K_PER_DOC) // VOCAB
     nnz = per_term * VOCAB
-    n = nnz + 1024
+    n = nnz + CHUNK2
     rows = torch.full((n,), N_DOCS, dtype=torch.int32, device=dev)
     pad_word = N_DOCS << 8
     pad_word -= (1 << 32) if pad_word >= 1 << 31 else 0   # as signed int32
@@ -106,9 +126,206 @@ def gen_index(dev):
     one = int(np.float32(1.0).view(np.int32))
     valbits = torch.full((n,), one, dtype=torch.int32, device=dev)
     valbits[nnz:] = 0
+    pair = int(np.array([0x3F80, 0x3F80], np.uint16).view(np.int32)[0])
+    pairs = torch.full((n // 2,), pair, dtype=torch.int32, device=dev)
+    pairs[nnz // 2:] = 0                    # nnz is even
     offsets = np.arange(VOCAB + 1, dtype=np.int64) * per_term
     scales = np.full(VOCAB, np.float32(1.0) / np.float32(255.0), np.float32)
-    return rows, valbits, packed, offsets, scales, nnz
+    return rows, valbits, pairs, packed, offsets, scales, nnz
+
+
+def varied_pairs(n_words: int, dev) -> torch.Tensor:
+    """bf16 pair words whose two values differ from posting to posting:
+    hash(word) -> two bf16 values in [0.5, 2) (half bits 0x3F00 + byte), so
+    a swap of the halves would change every word."""
+    out = torch.empty(n_words, dtype=torch.int32, device=dev)
+    step = 1 << 27
+    for s in range(0, n_words, step):
+        i = torch.arange(s, min(s + step, n_words), dtype=torch.int64,
+                         device=dev)
+        h = (i * 2654435761) & 0xFFFFFFFF
+        h = h ^ (h >> 15)
+        lo = 0x3F00 + (h & 0xFF)
+        hi = 0x3F00 + ((h >> 8) & 0xFF)
+        out[s:s + len(i)] = (lo | (hi << 16)).to(torch.int32)
+    return out
+
+
+# ---- bench_bmx.py's clustered corpus, in torch (sizes as published there)
+
+
+def make_cfg(C=1024, S=8634, PT=64, L_IN=8192, L_BG=4096,
+             V_G=2000, L_G=40960, n_topic_q=12, n_generic_q=10):
+    """C topic clusters of S docs (plus one cluster-free block), PT topical
+    terms per cluster posting L_IN times inside their cluster at high
+    impact and L_BG times outside at low impact, V_G generic terms posting
+    L_G times corpus-wide at low impact. List lengths are multiples of
+    CHUNK, so no fetch window straddles two lists."""
+    L_T = L_IN + L_BG
+    assert L_T % CHUNK == 0 and L_G % CHUNK == 0, (L_T, L_G)
+    assert S > L_IN
+    cfg = dict(C=C, S=S, N=(C + 1) * S, PT=PT, V_T=C * PT, L_IN=L_IN,
+               L_BG=L_BG, L_T=L_T, V_G=V_G, L_G=L_G, n_topic_q=n_topic_q,
+               n_generic_q=n_generic_q)
+    cfg["T_NNZ"] = cfg["V_T"] * L_T
+    cfg["NNZ"] = cfg["T_NNZ"] + V_G * L_G
+    cfg["V"] = cfg["V_T"] + V_G
+    assert cfg["NNZ"] + CHUNK < 2 ** 31
+    offsets = np.zeros(cfg["V"] + 1, np.int64)
+    offsets[:cfg["V_T"] + 1] = np.arange(cfg["V_T"] + 1, dtype=np.int64) * L_T
+    offsets[cfg["V_T"]:] = (cfg["T_NNZ"]
+                            + np.arange(V_G + 1, dtype=np.int64) * L_G)
+    cfg["offsets"] = offsets
+    return cfg
+
+
+def decode(pp: torch.Tensor, cfg):
+    """Posting index (int64) -> (doc int64, value f32): piecewise-linear
+    ascending doc maps, so every list is doc-sorted by construction.
+    Topical term t of cluster c posts before, inside (high impact) and
+    after [cS, cS+S); generic terms stride over the whole corpus. Values
+    are a regime base plus a period-256 jitter."""
+    C, S, N, PT = cfg["C"], cfg["S"], cfg["N"], cfg["PT"]
+    L_T, L_IN, L_BG, L_G = cfg["L_T"], cfg["L_IN"], cfg["L_BG"], cfg["L_G"]
+    T_NNZ, V_T = cfg["T_NNZ"], cfg["V_T"]
+    topical = pp < T_NNZ
+    ppt = torch.where(topical, pp, 0)
+    t_t = ppt // L_T
+    j_t = ppt % L_T
+    ppg = torch.where(topical, 0, pp - T_NNZ)
+    g = ppg // L_G
+    j_g = ppg % L_G
+    c = t_t // PT
+    cs = c * S
+    ce = cs + S
+    j1 = (L_BG * c) // C
+    j2 = j1 + L_IN
+    th = t_t % 9973
+    bpre = (th * 30011 + t_t * 7) % cs.clamp_min(1)
+    bin_ = (th * 48271 + t_t) % L_IN
+    lp = L_BG - j1
+    rp = N - ce
+    bpost = (th * 69621 + t_t * 13) % rp.clamp_min(1)
+    j1m = j1.clamp_min(1)
+    jp = torch.minimum(j_t, (j1 - 1).clamp_min(0))
+    d_pre = jp * (cs // j1m) + (jp * (cs % j1m) + bpre) // j1m
+    ji = (j_t - j1).clamp(0, L_IN - 1)
+    d_in = cs + ji * (S // L_IN) + (ji * (S % L_IN) + bin_) // L_IN
+    lpm = lp.clamp_min(1)
+    jj = torch.minimum((j_t - j2).clamp_min(0), (lp - 1).clamp_min(0))
+    d_post = ce + jj * (rp // lpm) + (jj * (rp % lpm) + bpost) // lpm
+    d_top = torch.where(j_t < j1, d_pre, torch.where(j_t < j2, d_in, d_post))
+    in_regime = topical & (j_t >= j1) & (j_t < j2)
+    bg = ((g + 3) * 1013904) % N
+    d_gen = j_g * (N // L_G) + (j_g * (N % L_G) + bg) // L_G
+    doc = torch.where(topical, d_top, d_gen)
+    term = torch.where(topical, t_t, V_T + g)
+    j = torch.where(topical, j_t, j_g)
+    jit8 = ((j * 13 + term * 37) % 256).to(torch.float32)
+    f32 = dict(dtype=torch.float32, device=pp.device)
+    base = torch.where(topical, torch.where(in_regime, torch.tensor(0.8, **f32),
+                                            torch.tensor(0.05, **f32)),
+                       torch.tensor(0.1, **f32))
+    scale = torch.where(topical, torch.where(in_regime,
+                                             torch.tensor(0.4, **f32),
+                                             torch.tensor(0.2, **f32)),
+                        torch.tensor(0.3, **f32))
+    val = base + scale * (jit8 * torch.tensor(1.0 / 256.0, **f32))
+    return doc, val
+
+
+def gen_device_csr(cfg, dev):
+    """Flat CSR on the card by arithmetic: rows int32 (the N sentinel past
+    nnz, padded by CHUNK), f32 value bits as int32."""
+    NNZ, N = cfg["NNZ"], cfg["N"]
+    rows = torch.full((NNZ + CHUNK,), N, dtype=torch.int32, device=dev)
+    bits = torch.zeros(NNZ + CHUNK, dtype=torch.int32, device=dev)
+    step = 1 << 26
+    for s in range(0, NNZ, step):
+        pp = torch.arange(s, min(s + step, NNZ), dtype=torch.int64, device=dev)
+        doc, val = decode(pp, cfg)
+        rows[s:s + len(pp)] = doc.to(torch.int32)
+        bits[s:s + len(pp)] = val.view(torch.int32)
+    return rows, bits
+
+
+def make_tiles(cfg, rng, n_tiles, tile=TILE, t_budget=32):
+    """SPLADE-shaped query tiles: n_topic_q high-weight terms from one
+    cluster plus n_generic_q low-weight expansion terms."""
+    nt, ng = cfg["n_topic_q"], cfg["n_generic_q"]
+    tiles = []
+    for _ in range(n_tiles):
+        qt = np.zeros((tile, t_budget), np.int32)
+        qv = np.zeros((tile, t_budget), np.float32)
+        for i in range(tile):
+            c = rng.integers(cfg["C"])
+            tt = c * cfg["PT"] + rng.choice(cfg["PT"], nt, replace=False)
+            gg = cfg["V_T"] + rng.choice(cfg["V_G"], ng, replace=False)
+            qt[i, :nt + ng] = np.concatenate([tt, gg])
+            qv[i, :nt] = rng.uniform(0.7, 1.3, nt)
+            qv[i, nt:nt + ng] = rng.uniform(0.2, 0.5, ng)
+        tiles.append((qt, qv))
+    return tiles
+
+
+def cross_check(s_a, r_a, s_b, r_b, atol=2e-4):
+    """bench_bmx.py's exactness test: scores allclose; rows equal except
+    where the score gap is inside the tolerance (another summation order
+    and sort). Returns the share of identical rows."""
+    np.testing.assert_allclose(s_a, s_b, atol=atol, rtol=atol)
+    neq = r_a != r_b
+    if neq.any():
+        check(float(np.abs(s_a[neq] - s_b[neq]).max()) < atol,
+              "rows differ outside the tie tolerance")
+    return float((~neq).mean())
+
+
+def clustered_index(dev, cfg):
+    """The clustered corpus on the card, its block-max meta (computed from
+    the card's tensors) and the unpruned engine over it. Returns (csr,
+    meta, base engine)."""
+    from scaling_retriever_tpu_torch.ops.blockmax import build_chunk_meta
+    from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
+
+    rows, bits = gen_device_csr(cfg, dev)
+    meta = build_chunk_meta(cfg["offsets"], rows, bits.view(torch.float32))
+    csr = (rows, bits, cfg["offsets"], cfg["N"])
+    base = SegsortEngine(topk=TOPK, query_terms_budget=32,
+                         device_csr=csr)
+    return csr, meta, base
+
+
+def make_bmx(csr, meta, cfg, **kw):
+    from scaling_retriever_tpu_torch.ops.blockmax import BlockMaxSegsortEngine
+
+    return BlockMaxSegsortEngine(None, topk=TOPK, query_terms_budget=32,
+                                 cover=BMX_COVER, gate=0.85, meta=meta,
+                                 device_csr=csr, **kw)
+
+
+def run_stream(eng, tiles, staged: bool):
+    """All tiles through ``eng`` (staged_pipeline(d1=2, d2=2) for the
+    two-pass engine, depth2_pipeline otherwise), ending in a host read.
+    Returns (scores, rows) concatenated."""
+    from scaling_retriever_tpu_torch.utils.utils import (depth2_pipeline,
+                                                         staged_pipeline)
+
+    out_s, out_r = [], []
+
+    def dispatch(t):
+        return eng.retrieve_tile_async(None, TOPK, sparsified=t)
+
+    def drain(p):
+        s, r = eng.finalize(p)
+        out_s.append(s)
+        out_r.append(r)
+
+    if staged:
+        staged_pipeline(tiles, dispatch, eng.continue_async, drain, d1=2,
+                        d2=2)
+    else:
+        depth2_pipeline(tiles, dispatch, drain)
+    return np.concatenate(out_s), np.concatenate(out_r)
 
 
 def query_tiles(rng, n):
@@ -121,7 +338,7 @@ def query_tiles(rng, n):
     return out
 
 
-def kernel_phase(dev, eng_f32, eng_q8, tile, card_s):
+def kernel_phase(dev, eng_f32, eng_q8, eng_bf16, tile, card_s):
     """Phase 2: each kernel against its plain version at the main path's
     shapes; returns the per-kernel report entries (launches filled later)."""
     from scaling_retriever_tpu_torch.ops import fetch, segsum, topm
@@ -138,8 +355,7 @@ def kernel_phase(dev, eng_f32, eng_q8, tile, card_s):
     valid = int(total.sum())
     check(int(eng_f32.job_need(*tile).max()) <= JOBS,
           "tile overflows the job table")
-    slots = TILE * JOBS * 1024
-    table_bytes = TILE * JOBS * (8 + 4 + 4 + 4)
+    slots = TILE * JOBS * CHUNK
     sent = N_DOCS
     report = []
 
@@ -159,13 +375,34 @@ def kernel_phase(dev, eng_f32, eng_q8, tile, card_s):
     check(torch.equal(got8[0], want8[0]) and torch.equal(got8[1], want8[1]),
           "B2 q8 fetch kernel != plain")
     check(torch.equal(got8[0], got[0]), "q8 rows != f32 rows")
-    for name, fn, plain, args, post_bytes, src_file, line in (
+    # B3 at its full shape, on pair words whose values differ per posting
+    check(int(eng_bf16.job_need(*tile).max()) <= JOBS2,
+          "tile overflows the bf16 job table")
+    t2 = fetch.job_table(qt, eng_bf16.offsets, qv, JOBS2, n_flat, CHUNK2)
+    valid2 = int(t2[4].sum())
+    check(valid2 == valid, "bf16 and f32 job tables cover other postings")
+    pairs = varied_pairs(eng_bf16.valbits_flat.shape[0], dev)
+    bf16_args = (eng_bf16.rows_flat, pairs, *t2[:4], JOBS2, sent)
+    got2 = fetch.fetch_jobs_bf16(*bf16_args)
+    want2 = fetch.fetch_jobs_bf16_plain(*bf16_args)
+    check(torch.equal(got2[0], want2[0]) and torch.equal(got2[1], want2[1]),
+          "B3 bf16 fetch kernel != plain")
+    w = pairs[:1 << 20]
+    check(float(((w & 0xFFFF) != (w >> 16)).float().mean()) > 0.9,
+          "B3 check ran on pairs whose two halves are mostly equal")
+    del got2, want2
+    for name, fn, plain, args, post_bytes, slots_k, jobs_k, src_file, \
+            line in (
             ("fetch_f32", fetch.fetch_jobs, fetch.fetch_jobs_plain, f32_args,
-             8, "fetch.cu", "scaling_retriever_tpu/ops/pallas_fetch.py:54"),
+             8, slots, TILE * JOBS, "fetch.cu",
+             "scaling_retriever_tpu/ops/pallas_fetch.py:54"),
             ("fetch_q8", fetch.fetch_jobs_q8, fetch.fetch_jobs_q8_plain,
-             q8_args, 4, "fetch.cu",
-             "scaling_retriever_tpu/ops/pallas_fetch.py:137")):
-        b_ms, b_by = bound(table_bytes + valid * post_bytes + slots * 8,
+             q8_args, 4, slots, TILE * JOBS, "fetch.cu",
+             "scaling_retriever_tpu/ops/pallas_fetch.py:137"),
+            ("fetch_bf16", fetch.fetch_jobs_bf16, fetch.fetch_jobs_bf16_plain,
+             bf16_args, 6, TILE * JOBS2 * CHUNK2, TILE * JOBS2, "fetch.cu",
+             "scaling_retriever_tpu/ops/pallas_fetch.py:94")):
+        b_ms, b_by = bound(jobs_k * 20 + valid * post_bytes + slots_k * 8,
                            valid)
         report.append({
             "name": name, "route": "cuda",
@@ -174,6 +411,7 @@ def kernel_phase(dev, eng_f32, eng_q8, tile, card_s):
             "ms": time_ms(lambda: fn(*args), 20),
             "plain_ms": time_ms(lambda: plain(*args), 3, 1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    del pairs, bf16_args
 
     # B4: the sorted slab of this tile
     rows, contrib = got[0].view(TILE, -1), got[1].view(TILE, -1)
@@ -233,22 +471,63 @@ def kernel_phase(dev, eng_f32, eng_q8, tile, card_s):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(
             lambda: torch.topk(out.view(TILE, nblk, block), m), 20)})
+    return report
+
+
+def log_kernels(report, card_s) -> None:
     for r in report:
         log(f"kernel {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}"
             f" ms, library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}) per {TILE}-query tile; card {card_s}")
-    return report
 
 
-def engine_phase(dev, eng_f32, eng_q8, tiles, card_s):
+def blockmax_kernel_phase(dev, csr, meta, tile):
+    """Phase 2, B1 at its block-max site: the kernel against its plain
+    version on a real pass-1 job table of the clustered corpus, bit for
+    bit. Returns the report entry."""
+    from scaling_retriever_tpu_torch.ops import blockmax as bm
+    from scaling_retriever_tpu_torch.ops import fetch
+    from scaling_retriever_tpu_torch.ops.segsort_scoring import KERNELS
+
+    rows, bits, offsets, n_docs = csr
+    qt, qv = tile
+    ov = bm.build_overlay(meta, offsets, qt, qv, n_docs)
+    kept = bm.keep_entries(ov, bm.cover_tau(ov, BMX_COVER * TOPK))
+    plan = bm.job_table(ov, kept)
+    J = plan["jobs_per_query"]
+    packed = torch.from_numpy(plan["packed"]).to(dev)
+    src, jvs, jve, jqv = bm.fetch_inputs(packed, rows.shape[0])
+    args = (rows, bits, src, jvs, jve, jqv, J, n_docs)
+    got = KERNELS.fetch_bmx(*args)
+    want = fetch.fetch_jobs_plain(*args)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "B1 at the block-max site != plain")
+    valid = int((jve - jvs).sum())
+    check(valid > 0 and kept.mean() < 1, "pass-1 table is empty or unpruned")
+    n_jobs = int(src.shape[0])
+    b_ms, b_by = bound(n_jobs * 20 + valid * 8 + n_jobs * CHUNK * 8, valid)
+    log(f"block-max site: pass-1 table of {TILE} queries x {J} jobs "
+        f"(kept {kept.mean():.4f} of {len(kept)} windows), {valid} postings")
+    return {"name": "fetch_f32_blockmax", "route": "cuda",
+            "source": "scaling_retriever_tpu_torch/csrc/fetch.cu",
+            "replaces": "scaling_retriever_tpu/ops/blockmax.py:378",
+            "launches": 0, "max_abs_err": 0.0,
+            "ms": time_ms(lambda: KERNELS.fetch_bmx(*args), 20),
+            "plain_ms": time_ms(lambda: fetch.fetch_jobs_plain(*args), 3, 1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def engine_phase(dev, eng_f32, eng_q8, eng_bf16, tiles, card_s):
     """Phase 3: SegsortEngine (kernels) vs the plain path on full tiles,
-    and tile times through the depth-2 pipeline."""
+    bf16 also vs the f32 engine (every value is 1.0, exact in bf16), and
+    tile times through the depth-2 pipeline."""
     from scaling_retriever_tpu_torch.ops import segsort_scoring as ss
     from scaling_retriever_tpu_torch.utils.utils import (
         depth2_pipeline, tie_equal_topk)
 
-    for name, eng in (("f32", eng_f32), ("q8", eng_q8)):
-        for qt, qv in tiles[:3]:
+    f32_res = []
+    for name, eng in (("f32", eng_f32), ("q8", eng_q8), ("bf16", eng_bf16)):
+        for i, (qt, qv) in enumerate(tiles[:3]):
             s1, r1 = eng.finalize(eng.retrieve_tile_async(
                 None, TOPK, sparsified=(qt, qv)))
             J = ss.bucket_jobs(int(eng.job_need(qt, qv).max()))
@@ -259,6 +538,10 @@ def engine_phase(dev, eng_f32, eng_q8, tiles, card_s):
                 s0, r0, _ = ss.segsort_retrieve_dma_q8(
                     eng.rows_flat, eng.offsets, qtd, qvd, TOPK, J, N_DOCS,
                     ops=ss.PLAIN)
+            elif name == "bf16":
+                s0, r0, _ = ss.segsort_retrieve_dma_bf16(
+                    eng.rows_flat, eng.valbits_flat, eng.offsets, qtd, qvd,
+                    TOPK, J, N_DOCS, ops=ss.PLAIN)
             else:
                 s0, r0, _ = ss.segsort_retrieve_dma(
                     eng.rows_flat, eng.valbits_flat, eng.offsets, qtd, qvd,
@@ -268,12 +551,19 @@ def engine_phase(dev, eng_f32, eng_q8, tiles, card_s):
                   f"{name}: non-finite or short top-{TOPK}")
             for q in range(TILE):
                 tie_equal_topk(r0[q], s0[q], r1[q], s1[q], rtol=1e-5)
+            if name == "f32":
+                f32_res.append((s1, r1))
+            elif name == "bf16":
+                for q in range(TILE):
+                    tie_equal_topk(f32_res[i][1][q], f32_res[i][0][q],
+                                   r1[q], s1[q], rtol=1e-5)
         n = 8
         t0 = time.perf_counter()
         depth2_pipeline(tiles[:n], lambda t: eng.retrieve_tile_async(
             None, TOPK, sparsified=t), eng.finalize)
         ms = (time.perf_counter() - t0) * 1e3 / n
         log(f"engine {name}: kernel path == plain path (tie-equal, rtol 1e-5)"
+            f"{' and == f32 engine' if name == 'bf16' else ''}"
             f" on 3 tiles; {ms:.2f} ms per {TILE}-query tile, "
             f"{TILE * 1e3 / ms:.1f} QPS (depth-2 pipeline, {n} tiles); "
             f"card {card_s}")
@@ -304,6 +594,54 @@ def engine_phase(dev, eng_f32, eng_q8, tiles, card_s):
         tie_equal_topk(order[want[q][order] > 0], want[q][order][
             want[q][order] > 0], r[q][fin], s[q][fin], rtol=1e-5)
     log("engine small index == brute-force oracle (tie-equal, rtol 1e-5)")
+
+
+def clustered_phase(dev, cfg, csr, meta, base, tiles, card_s):
+    """Phase 3 on the clustered corpus: the block-max engine through the
+    staged pipeline against the unpruned engine through the depth-2
+    pipeline (bench_bmx.py's cross_check), one tile against the plain-ops
+    engine, tile times, kept fractions, host-pruning split and the device's
+    busy share. Returns the block-max engine of the timed pass."""
+    from scaling_retriever_tpu_torch.ops.segsort_scoring import PLAIN
+    from scaling_retriever_tpu_torch.utils.utils import tie_equal_topk
+
+    n = len(tiles)
+    run_stream(base, tiles[:2], staged=False)               # warm
+    run_stream(make_bmx(csr, meta, cfg), tiles[:2], staged=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_b, r_b = run_stream(base, tiles, staged=False)
+    base_ms = (time.perf_counter() - t0) * 1e3 / n
+    bmx = make_bmx(csr, meta, cfg)
+    t0 = time.perf_counter()
+    s_x, r_x = run_stream(bmx, tiles, staged=True)
+    bmx_ms = (time.perf_counter() - t0) * 1e3 / n
+    st = bmx.stats()
+    check(np.isfinite(s_x).all() and s_x.shape == (n * TILE, TOPK),
+          "block-max: non-finite or short top-1000")
+    same = cross_check(s_x, r_x, s_b, r_b)
+    check(st["pruned_tiles"] > 0 and st["gated_tiles"] < n,
+          f"block-max never pruned, or gated every tile: {st}")
+    plain = make_bmx(csr, meta, cfg, ops=PLAIN)
+    s_p, r_p = plain.finalize(plain.retrieve_tile_async(
+        None, TOPK, sparsified=tiles[0]))
+    for q in range(TILE):
+        tie_equal_topk(r_p[q], s_p[q], r_x[q], s_x[q], rtol=1e-5)
+    host = {k_: round(v / n, 2) for k_, v in st["host_ms"].items()}
+    log(f"engine bmx (clustered, {cfg['N']} docs, {cfg['NNZ']} postings): "
+        f"== unpruned engine on {n} tiles x {TILE} queries (cross_check "
+        f"2e-4, {same:.4f} of rows identical), == plain-ops engine on a "
+        f"tile (tie-equal, rtol 1e-5); {bmx_ms:.2f} ms per tile staged "
+        f"(d1=2, d2=2) vs unpruned {base_ms:.2f} ms per tile (depth-2); "
+        f"mean kept {st['mean_kept1_frac']} (pass 1) / "
+        f"{st['mean_kept_frac']} (final); host ms per tile {host} (sum "
+        f"{sum(host.values()):.2f}); stats {st}; card {card_s}")
+    profile_tile(f"bmx staged pipeline ({n} tiles)",
+                 lambda: run_stream(make_bmx(csr, meta, cfg), tiles,
+                                    staged=True), card_s)
+    profile_tile(f"unpruned depth-2 pipeline ({n} tiles)",
+                 lambda: run_stream(base, tiles, staged=False), card_s)
+    return bmx
 
 
 def profile_tile(label: str, fn, card_s: str) -> None:
@@ -355,9 +693,37 @@ class StandInTokenizer:
         return ids, mask
 
 
-def serving_phase(dev, eng_f32, eng_q8, seed, card_s):
-    """Phase 4: text serving at Llama-3.2-1B width (q8 handoff) and
-    pre-encoded serving (f32). Returns the launch counts of the phase."""
+def serve_requests(server, reqs):
+    """Submit every request, then wait for all: (results, seconds)."""
+    t0 = time.perf_counter()
+    futs = [server.submit(r) for r in reqs]
+    res = [f.result(timeout=600) for f in futs]
+    return res, time.perf_counter() - t0
+
+
+def check_served(backend, eng, reqs, res, label):
+    """Each served result is tie-equal (rtol 1e-5) to the engine's own
+    tile over the same queries."""
+    from scaling_retriever_tpu_torch.utils.utils import tie_equal_topk
+
+    for s0 in range(0, len(reqs), TILE):
+        chunk = reqs[s0:s0 + TILE]
+        scores, rows = eng.finalize(eng.retrieve_tile_async(
+            None, TOPK, sparsified=backend.pack(chunk)))
+        for i in range(len(chunk)):
+            ids, sc = res[s0 + i]
+            check(len(ids) > 0 and np.isfinite(sc).all(),
+                  f"{label}: empty or non-finite result")
+            fin = np.isfinite(scores[i])
+            tie_equal_topk(rows[i][fin], scores[i][fin], ids, sc, rtol=1e-5)
+
+
+def serving_phase(dev, eng_f32, eng_q8, eng_bf16, bmx, bmx_tiles, seed,
+                  card_s):
+    """Phase 4: text serving at Llama-3.2-1B width (q8 handoff) plus
+    pre-encoded serving (f32), then pre-encoded serving on the bf16 index
+    and on the block-max engine. Returns the launch counts of each path,
+    each read over exactly that path."""
     from scaling_retriever_tpu_torch.models.config import (LLAMA_3_2_1B,
                                                            ModelConfig)
     from scaling_retriever_tpu_torch.models.encoder import LlamaBiSparse
@@ -404,6 +770,7 @@ def serving_phase(dev, eng_f32, eng_q8, seed, card_s):
     check(all(len(r[0]) > 0 for r in reps.values()), "empty query reps")
 
     servers = []
+    paths = {}
     try:
         # 64-term queries need ~620 jobs each (bucket 768): a 64-wide tile
         # is 64 x 768 job slots, so the slot cap is raised to hold it
@@ -448,8 +815,36 @@ def serving_phase(dev, eng_f32, eng_q8, seed, card_s):
         futs = [srv_f32.submit(reps[t]) for t in f32_texts]
         f32_res = [f.result(timeout=600) for f in futs]
         f32_s = time.perf_counter() - t0
-        launches = dict(cuda_lib.LAUNCHES)
+        paths["text q8 + pre-encoded f32"] = dict(cuda_lib.LAUNCHES)
         # ---- end of the main path ----
+
+        # ---- the bf16 index: launch counts cover exactly this block ----
+        b_bf16 = SparseTileBackend(eng_bf16, None, N_DOCS, width=TILE,
+                                   t_budget=T_BUDGET, topk=TOPK,
+                                   tile_slots_cap=cap)
+        srv_bf16 = RetrievalServer(b_bf16)
+        srv_bf16.warmup(sample, passes=1)
+        bf16_reqs = [reps[t] for t in f32_texts]
+        cuda_lib.reset_launches()
+        srv_bf16.start()
+        servers.append(srv_bf16)
+        bf16_res, bf16_s = serve_requests(srv_bf16, bf16_reqs)
+        paths["pre-encoded bf16"] = dict(cuda_lib.LAUNCHES)
+
+        # ---- the block-max engine: launch counts cover exactly this ----
+        b_bmx = SparseTileBackend(bmx, None, bmx.n_docs, width=TILE,
+                                  t_budget=32, topk=TOPK, tile_slots_cap=cap)
+        srv_bmx = RetrievalServer(b_bmx)
+        bmx_reqs = [(qt[i][qv[i] > 0], qv[i][qv[i] > 0])
+                    for qt, qv in bmx_tiles for i in range(TILE)]
+        srv_bmx.warmup(bmx_reqs[:TILE], passes=1)
+        before = bmx.stats()
+        cuda_lib.reset_launches()
+        srv_bmx.start()
+        servers.append(srv_bmx)
+        bmx_res, bmx_s = serve_requests(srv_bmx, bmx_reqs)
+        paths["pre-encoded block-max"] = dict(cuda_lib.LAUNCHES)
+        after = bmx.stats()
 
         log(f"text serving (q8 index, device handoff): {len(text_res)} "
             f"requests in {text_s:.2f} s = {len(text_res) / text_s:.1f} QPS;"
@@ -460,6 +855,18 @@ def serving_phase(dev, eng_f32, eng_q8, seed, card_s):
         log(f"pre-encoded serving (f32 index): {len(f32_res)} requests in "
             f"{f32_s:.2f} s = {len(f32_res) / f32_s:.1f} QPS; "
             f"server {srv_f32.stats()}; card {card_s}")
+        log(f"pre-encoded serving (bf16 index): {len(bf16_res)} requests in "
+            f"{bf16_s:.2f} s = {len(bf16_res) / bf16_s:.1f} QPS; "
+            f"server {srv_bf16.stats()}; card {card_s}")
+        log(f"pre-encoded serving (block-max engine, clustered corpus): "
+            f"{len(bmx_res)} requests in {bmx_s:.2f} s = "
+            f"{len(bmx_res) / bmx_s:.1f} QPS; pruned tiles "
+            f"{after['pruned_tiles'] - before['pruned_tiles']}, pass-2 tiles "
+            f"{after['pass2_tiles'] - before['pass2_tiles']}, gated "
+            f"{after['gated_tiles'] - before['gated_tiles']}; server "
+            f"{srv_bmx.stats()}; card {card_s}")
+        for path, counts in paths.items():
+            log(f"launches over the {path} path: {counts}")
 
         # ---- checks (after the counted block) ----
         for t, (ids, scores) in text_res.items():
@@ -475,6 +882,12 @@ def serving_phase(dev, eng_f32, eng_q8, seed, card_s):
             tie_equal_topk(*text_res[t], ids, scores, rtol=2e-5)
         log(f"text results == RetrievalServer.submit of the same reps "
             f"(tie-equal, rtol 1e-5); f32 == q8 (tie-equal, rtol 2e-5)")
+        check_served(b_bf16, eng_bf16, bf16_reqs, bf16_res, "bf16")
+        check_served(b_bmx, bmx, bmx_reqs, bmx_res, "block-max")
+        check(after["pruned_tiles"] > before["pruned_tiles"],
+              "the block-max server pruned no tile")
+        log(f"bf16 and block-max served results == engine tiles of the same "
+            f"queries (tie-equal, rtol 1e-5)")
         text_tile = b_f32.pack([reps[t] for t in long[:TILE]])
         profile_tile("f32 engine tile (64 text reps)",
                      lambda: eng_f32.finalize(eng_f32.retrieve_tile_async(
@@ -487,7 +900,7 @@ def serving_phase(dev, eng_f32, eng_q8, seed, card_s):
     finally:
         for s in reversed(servers):
             s.stop()
-    return launches
+    return paths
 
 
 def main(argv=None) -> int:
@@ -499,9 +912,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from scaling_retriever_tpu_torch.ops import cuda_lib
-    from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
 
-    dev = torch.device("cuda", 0)
     card_s = card()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}; card {card_s}")
@@ -510,35 +921,66 @@ def main(argv=None) -> int:
     lib = cuda_lib.build(verbose=True)
     cuda_lib.library()
     log(f"phase 1: built {lib} in {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    rows, valbits, packed, offsets, scales, nnz = gen_index(dev)
-    eng_f32 = SegsortEngine(topk=TOPK, query_terms_budget=T_BUDGET,
-                            device_csr=(rows, valbits, offsets, N_DOCS))
-    eng_q8 = SegsortEngine(topk=TOPK, query_terms_budget=T_BUDGET,
-                           val_dtype="q8",
-                           device_csr=(packed, scales, offsets, N_DOCS))
-    log(f"index: {nnz} postings on card in {time.perf_counter() - t0:.1f} s "
-        f"(f32 {(rows.nbytes + valbits.nbytes) / 1e9:.1f} GB, q8 "
-        f"{packed.nbytes / 1e9:.1f} GB)")
-
-    tiles = query_tiles(np.random.default_rng(args.seed), 9)
-    report = kernel_phase(dev, eng_f32, eng_q8, tiles[0], card_s)
-    log("phase 2: every kernel matches its plain version")
-    engine_phase(dev, eng_f32, eng_q8, tiles, card_s)
-    log("phase 3: engine kernel path matches the plain path")
-    launches = serving_phase(dev, eng_f32, eng_q8, args.seed, card_s)
-    for r in report:
-        r["launches"] = launches[r["name"]]
-    check(all(r["launches"] > 0 for r in report),
-          f"a kernel was not launched on the main path: {launches}")
-    log("phase 4: served text and pre-encoded requests through the kernels")
+    report = run(torch.device("cuda", 0), args.seed, card_s)
     log(card_s)
     log(json.dumps({"kernels": report}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run(dev, seed: int, card_s: str) -> list:
+    """Phases 2-4 on ``dev``; returns the per-kernel report entries."""
+    from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
+
+    t0 = time.perf_counter()
+    rows, valbits, pairs, packed, offsets, scales, nnz = gen_index(dev)
+    eng_f32 = SegsortEngine(topk=TOPK, query_terms_budget=T_BUDGET,
+                            device_csr=(rows, valbits, offsets, N_DOCS))
+    eng_bf16 = SegsortEngine(topk=TOPK, query_terms_budget=T_BUDGET,
+                             val_dtype="bf16",
+                             device_csr=(rows, pairs, offsets, N_DOCS))
+    eng_q8 = SegsortEngine(topk=TOPK, query_terms_budget=T_BUDGET,
+                           val_dtype="q8",
+                           device_csr=(packed, scales, offsets, N_DOCS))
+    log(f"index: {nnz} postings on card in {time.perf_counter() - t0:.1f} s "
+        f"(f32 {(rows.nbytes + valbits.nbytes) / 1e9:.1f} GB, bf16 pairs "
+        f"{(rows.nbytes + pairs.nbytes) / 1e9:.1f} GB, q8 "
+        f"{packed.nbytes / 1e9:.1f} GB)")
+
+    t0 = time.perf_counter()
+    cfg = make_cfg()
+    csr, meta, base = clustered_index(dev, cfg)
+    bmx_tiles = make_tiles(cfg, np.random.default_rng(seed), 14)
+    log(f"clustered index: {cfg['NNZ']} postings, {cfg['N']} docs in "
+        f"{cfg['C']} clusters, on card with block-max meta "
+        f"({len(meta['sub_max'])} sub-blocks, from the card's tensors) in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({(csr[0].nbytes + csr[1].nbytes) / 1e9:.1f} GB)")
+
+    tiles = query_tiles(np.random.default_rng(seed), 9)
+    report = kernel_phase(dev, eng_f32, eng_q8, eng_bf16, tiles[0], card_s)
+    report.insert(1, blockmax_kernel_phase(dev, csr, meta, bmx_tiles[0]))
+    log_kernels(report, card_s)
+    log("phase 2: every kernel matches its plain version")
+    engine_phase(dev, eng_f32, eng_q8, eng_bf16, tiles, card_s)
+    bmx = clustered_phase(dev, cfg, csr, meta, base, bmx_tiles[:12], card_s)
+    log("phase 3: engine kernel paths match the plain paths; block-max "
+        "matches the unpruned engine")
+    paths = serving_phase(dev, eng_f32, eng_q8, eng_bf16, bmx,
+                          bmx_tiles[12:], seed, card_s)
+    for path, kernels in PATH_KERNELS.items():
+        missing = [k_ for k_ in kernels if paths[path][k_] == 0]
+        check(not missing, f"{missing} not launched on the {path} path: "
+              f"{paths[path]}")
+    for r in report:
+        r["launches"] = sum(p_[r["name"]] for p_ in paths.values())
+    check(all(r["launches"] > 0 for r in report),
+          f"a kernel was not launched on the main paths: {paths}")
+    log("phase 4: served text and pre-encoded requests (f32, bf16, q8, "
+        "block-max) through the kernels")
+    return report
 
 
 if __name__ == "__main__":

@@ -41,11 +41,14 @@ _I32 = ctypes.c_int32
 SIGNATURES = {
     "srt_fetch_f32": [_P] * 8 + [_I64, _I32, _I32, _P],
     "srt_fetch_q8": [_P] * 7 + [_I64, _I32, _I32, _P],
+    "srt_fetch_bf16": [_P] * 8 + [_I64, _I32, _I32, _P],
     "srt_segsum": [_P] * 3 + [_I64, _I64, _I32, _P],
     "srt_topm": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
 }
 
-LAUNCHES = {"fetch_f32": 0, "fetch_q8": 0, "segsum": 0, "topm": 0}
+# fetch_f32_blockmax counts B1's second call site (ops/blockmax.py)
+LAUNCHES = {"fetch_f32": 0, "fetch_f32_blockmax": 0, "fetch_q8": 0,
+            "fetch_bf16": 0, "segsum": 0, "topm": 0}
 
 _lock = threading.Lock()
 _lib = None

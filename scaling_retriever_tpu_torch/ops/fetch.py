@@ -15,6 +15,13 @@ return ``(rows, contrib)`` where the reference returned
 ``where(valid, rows, sentinel)`` and ``contrib`` its
 ``where(valid, vals * qw, 0)`` bit for bit.
 
+Three value layouts share the job machinery: f32 (rows and value bits in
+two int32 streams) and q8 (one ``(row24 << 8) | code8`` word per posting)
+use CHUNK-posting jobs from ALIGN-aligned sources; the bf16-pair layout
+(rows plus one int32 word per two little-endian bf16 values, 6 B per
+posting) uses CHUNK2-posting jobs from CHUNK2-aligned sources, so the
+value words of a job start at ``src // 2``.
+
 Each kernel has a plain PyTorch version of the same function beside it.
 The wrapper takes the plain version only for tensors on the CPU; a CUDA
 tensor launches the kernel or raises.
@@ -26,11 +33,9 @@ import torch
 
 from scaling_retriever_tpu_torch.ops import cuda_lib
 
-CHUNK = 1024    # postings per job
-ALIGN = 1024    # job source alignment, in postings
-# bf16-pair value layout (CHUNK2-posting jobs); not ported yet, kept so the
-# job granularity of every layout is defined in one place
-CHUNK2 = 2048
+CHUNK = 1024    # postings per job (f32, q8)
+ALIGN = 1024    # job source alignment, in postings (f32, q8)
+CHUNK2 = 2048   # postings per job and source alignment of the bf16 layout
 # q8 words carry 24-bit rows: (row24 << 8) | code8
 Q8_ROW_LIMIT = 1 << 24
 
@@ -67,30 +72,33 @@ def _job_table(src_al: torch.Tensor, prev_jobs: torch.Tensor,
 
 
 def job_table(q_terms: torch.Tensor, offsets: torch.Tensor,
-              q_vals: torch.Tensor, jobs_per_query: int, nnz: int):
+              q_vals: torch.Tensor, jobs_per_query: int, nnz: int,
+              chunk: int = CHUNK):
     """The fetch's inputs for one query tile: (src [nq*J] int64 clamped into
     the flat arrays, jv_start [nq*J] int32, jv_end [nq*J] int32, j_qv
     [nq*J] f32, total [nq] int64 = valid postings per query). ``q_vals``
-    must already carry any q8 dequant scale."""
+    must already carry any q8 dequant scale. ``chunk`` is the layout's job
+    size, CHUNK or CHUNK2; every layout aligns its sources to its job size
+    (ALIGN == CHUNK)."""
     nq, T = q_terms.shape
     qt = q_terms.long()
     lens = (offsets[qt + 1] - offsets[qt]) * (q_vals > 0)
     starts = offsets[qt]
-    src_al = (starts // ALIGN) * ALIGN
+    src_al = (starts // chunk) * chunk
     head = starts - src_al
-    n_jobs = torch.where(lens > 0, -(-(head + lens) // CHUNK), 0)
+    n_jobs = torch.where(lens > 0, -(-(head + lens) // chunk), 0)
     cum_jobs = torch.cumsum(n_jobs, dim=1)
     prev_jobs = cum_jobs - n_jobs
-    region_start = prev_jobs * CHUNK + head
+    region_start = prev_jobs * chunk + head
     region_end = region_start + lens
     src_j, jv_start, jv_end, j_qv = _job_table(
         src_al, prev_jobs, cum_jobs, region_start, region_end,
-        q_vals.float(), jobs_per_query)
-    # callers pad the flat arrays by CHUNK (SegsortEngine does), so every
+        q_vals.float(), jobs_per_query, chunk)
+    # callers pad the flat arrays by one job (SegsortEngine does), so every
     # aligned window is in bounds; the clamp guards idle slots only
-    max_src = ((nnz - CHUNK) // ALIGN) * ALIGN
-    base = torch.arange(jobs_per_query, device=q_terms.device) * CHUNK
-    per_job = (torch.minimum(jv_end, base + CHUNK)
+    max_src = ((nnz - chunk) // chunk) * chunk
+    base = torch.arange(jobs_per_query, device=q_terms.device) * chunk
+    per_job = (torch.minimum(jv_end, base + chunk)
                - torch.maximum(jv_start, base)).clamp_min(0)
     return (src_j.reshape(-1).clamp(0, max_src).contiguous(),
             jv_start.reshape(-1).to(torch.int32).contiguous(),
@@ -99,11 +107,11 @@ def job_table(q_terms: torch.Tensor, offsets: torch.Tensor,
             per_job.sum(dim=1))
 
 
-def _plain_windows(src, jv_start, jv_end, jobs_per_query):
+def _plain_windows(src, jv_start, jv_end, jobs_per_query, chunk=CHUNK):
     n = src.shape[0]
-    lane = torch.arange(CHUNK, device=src.device)
+    lane = torch.arange(chunk, device=src.device)
     pos = (torch.arange(n, device=src.device) % jobs_per_query)[:, None] \
-        * CHUNK + lane
+        * chunk + lane
     valid = (pos >= jv_start[:, None]) & (pos < jv_end[:, None])
     return src[:, None] + lane, valid
 
@@ -130,6 +138,29 @@ def fetch_jobs_q8_plain(packed_flat, src, jv_start, jv_end, j_qv,
     return rows.reshape(-1), contrib.reshape(-1)
 
 
+def unpack_bf16_pairs(words: torch.Tensor) -> torch.Tensor:
+    """int32 words [..., n] → f32 [..., 2n]: the low half of word i is
+    value 2i, the high half value 2i+1 (little-endian pairs). A bf16 is
+    the top half of an f32, so each half is moved there with a left shift
+    or a mask; neither touches torch's arithmetic ``>>``."""
+    lo = torch.bitwise_left_shift(words, 16)
+    hi = words & -0x10000                       # 0xFFFF0000 as int32
+    return torch.stack([lo, hi], dim=-1).flatten(-2).view(torch.float32)
+
+
+def fetch_jobs_bf16_plain(rows_flat, valpacked_flat, src, jv_start, jv_end,
+                          j_qv, jobs_per_query: int, sentinel: int):
+    """Plain version of the bf16-pair fetch kernel: job j copies the CHUNK2
+    rows at ``src[j]`` and the CHUNK2 // 2 value words at ``src[j] // 2``.
+    Returns (rows, contrib) [nq*J*CHUNK2]."""
+    idx, valid = _plain_windows(src, jv_start, jv_end, jobs_per_query, CHUNK2)
+    rows = torch.where(valid, rows_flat[idx], sentinel)
+    widx = (src // 2)[:, None] + torch.arange(CHUNK2 // 2, device=src.device)
+    vals = unpack_bf16_pairs(valpacked_flat[widx])
+    contrib = torch.where(valid, vals * j_qv[:, None], 0.0)
+    return rows.reshape(-1), contrib.reshape(-1)
+
+
 def _check_table(src, jv_start, jv_end, j_qv, device):
     cuda_lib.check_cuda("src", src, torch.int64, device)
     cuda_lib.check_cuda("jv_start", jv_start, torch.int32, device)
@@ -141,10 +172,12 @@ def _check_table(src, jv_start, jv_end, j_qv, device):
 
 
 def fetch_jobs(rows_flat, valbits_flat, src, jv_start, jv_end, j_qv,
-               jobs_per_query: int, sentinel: int):
+               jobs_per_query: int, sentinel: int, site: str = "fetch_f32"):
     """f32 fetch (kernel B1): job j copies the CHUNK postings at
     ``src[j]`` into slots [j*CHUNK, (j+1)*CHUNK), masked and weighted.
-    Returns (rows int32, contrib f32), each [len(src) * CHUNK]."""
+    Returns (rows int32, contrib f32), each [len(src) * CHUNK]. ``site``
+    is the launch counter (B1 has two call sites: the segsort engine's
+    on-device job table and the block-max engine's host-built one)."""
     if rows_flat.device.type == "cpu":
         return fetch_jobs_plain(rows_flat, valbits_flat, src, jv_start,
                                 jv_end, j_qv, jobs_per_query, sentinel)
@@ -160,7 +193,7 @@ def fetch_jobs(rows_flat, valbits_flat, src, jv_start, jv_end, j_qv,
     rows = torch.empty(n * CHUNK, dtype=torch.int32, device=dev)
     contrib = torch.empty(n * CHUNK, dtype=torch.float32, device=dev)
     if n:
-        cuda_lib.launch("fetch_f32", "srt_fetch_f32", dev,
+        cuda_lib.launch(site, "srt_fetch_f32", dev,
                         src.data_ptr(), jv_start.data_ptr(),
                         jv_end.data_ptr(), j_qv.data_ptr(),
                         rows_flat.data_ptr(), valbits_flat.data_ptr(),
@@ -193,6 +226,38 @@ def fetch_jobs_q8(packed_flat, src, jv_start, jv_end, j_qv,
     return rows, contrib
 
 
+def fetch_jobs_bf16(rows_flat, valpacked_flat, src, jv_start, jv_end,
+                    j_qv, jobs_per_query: int, sentinel: int):
+    """bf16-pair fetch (kernel B3): job j copies the CHUNK2 postings at the
+    CHUNK2-aligned ``src[j]`` into slots [j*CHUNK2, (j+1)*CHUNK2), values
+    widened to f32, masked and weighted. Returns (rows int32, contrib f32),
+    each [len(src) * CHUNK2]."""
+    if rows_flat.device.type == "cpu":
+        return fetch_jobs_bf16_plain(rows_flat, valpacked_flat, src,
+                                     jv_start, jv_end, j_qv, jobs_per_query,
+                                     sentinel)
+    if rows_flat.device.type != "cuda":
+        raise ValueError(f"no fetch for device {rows_flat.device}")
+    dev = rows_flat.device
+    cuda_lib.check_cuda("rows_flat", rows_flat, torch.int32, dev)
+    cuda_lib.check_cuda("valpacked_flat", valpacked_flat, torch.int32, dev)
+    if 2 * valpacked_flat.shape[0] < rows_flat.shape[0]:
+        raise ValueError("valpacked_flat holds fewer than len(rows_flat) "
+                         "values")
+    _check_table(src, jv_start, jv_end, j_qv, dev)
+    n = src.shape[0]
+    rows = torch.empty(n * CHUNK2, dtype=torch.int32, device=dev)
+    contrib = torch.empty(n * CHUNK2, dtype=torch.float32, device=dev)
+    if n:
+        cuda_lib.launch("fetch_bf16", "srt_fetch_bf16", dev,
+                        src.data_ptr(), jv_start.data_ptr(),
+                        jv_end.data_ptr(), j_qv.data_ptr(),
+                        rows_flat.data_ptr(), valpacked_flat.data_ptr(),
+                        rows.data_ptr(), contrib.data_ptr(), n,
+                        jobs_per_query, sentinel)
+    return rows, contrib
+
+
 def fetch_postings_dma(rows_flat, valbits_flat, q_terms, offsets, q_vals,
                        jobs_per_query: int, sentinel: int,
                        fetch=fetch_jobs):
@@ -217,4 +282,20 @@ def fetch_postings_dma_q8(packed_flat, q_terms, offsets, q_vals,
                                           jobs_per_query, packed_flat.shape[0])
     rows, contrib = fetch(packed_flat, src, jvs, jve, jqv, jobs_per_query,
                           sentinel)
+    return rows.view(nq, -1), contrib.view(nq, -1), total
+
+
+def fetch_postings_dma_bf16(rows_flat, valpacked_flat, q_terms, offsets,
+                            q_vals, jobs_per_query: int, sentinel: int,
+                            fetch=fetch_jobs_bf16):
+    """bf16-pair twin of ``fetch_postings_dma``: rows_flat [nnz + pad]
+    int32, valpacked_flat int32 with 2 * len >= len(rows_flat). Returns
+    (rows [nq, Pp] int32, contrib [nq, Pp] f32, total [nq]) with
+    Pp = J * CHUNK2."""
+    nq = q_terms.shape[0]
+    src, jvs, jve, jqv, total = job_table(q_terms, offsets, q_vals,
+                                          jobs_per_query, rows_flat.shape[0],
+                                          CHUNK2)
+    rows, contrib = fetch(rows_flat, valpacked_flat, src, jvs, jve, jqv,
+                          jobs_per_query, sentinel)
     return rows.view(nq, -1), contrib.view(nq, -1), total

@@ -4,8 +4,9 @@ ops/segsort_scoring.py).
 Work is proportional to the postings a query tile matches. Per tile:
   1. query terms are ordered by term id (monotone fetch addresses);
   2. posting fetch: each (query, term) slice is one contiguous CSR range,
-     copied by CHUNK-posting jobs (ops/fetch.py, kernels B1/B2) with the
-     valid mask, sentinel row and query weight fused in;
+     copied by fixed-size jobs (ops/fetch.py, kernels B1/B2/B3 for the
+     f32, q8 and bf16-pair layouts) with the valid mask, sentinel row and
+     query weight fused in;
   3. per-query sort of (doc row, contribution) by doc row;
   4. segmented sum + run-end mask (ops/segsum.py, kernel B4): each doc's
      score at the end of its run, -inf elsewhere;
@@ -31,6 +32,8 @@ wrappers take the plain versions themselves.
 
 from __future__ import annotations
 
+import functools
+import sys
 from collections import namedtuple
 from typing import Optional
 
@@ -38,8 +41,10 @@ import numpy as np
 import torch
 
 from scaling_retriever_tpu_torch.ops.fetch import (
-    ALIGN, CHUNK, Q8_ROW_LIMIT, fetch_jobs, fetch_jobs_plain, fetch_jobs_q8,
-    fetch_jobs_q8_plain, fetch_postings_dma, fetch_postings_dma_q8,
+    CHUNK, CHUNK2, Q8_ROW_LIMIT, fetch_jobs, fetch_jobs_bf16,
+    fetch_jobs_bf16_plain, fetch_jobs_plain, fetch_jobs_q8,
+    fetch_jobs_q8_plain, fetch_postings_dma, fetch_postings_dma_bf16,
+    fetch_postings_dma_q8,
 )
 from scaling_retriever_tpu_torch.ops.segsum import (
     _run_end_mask, _segsum_passes, eligible, segsum_mask, segsum_mask_plain,
@@ -47,10 +52,14 @@ from scaling_retriever_tpu_torch.ops.segsum import (
 from scaling_retriever_tpu_torch.ops.topm import block_topm, block_topm_plain
 from scaling_retriever_tpu_torch.utils.utils import force_materialized
 
-Ops = namedtuple("Ops", "fetch fetch_q8 segsum topm")
-KERNELS = Ops(fetch_jobs, fetch_jobs_q8, segsum_mask, block_topm)
-PLAIN = Ops(fetch_jobs_plain, fetch_jobs_q8_plain, segsum_mask_plain,
-            block_topm_plain)
+# fetch_bmx is B1 at its block-max call site (ops/blockmax.py): the same
+# kernel, counted under a launch key of its own
+Ops = namedtuple("Ops", "fetch fetch_q8 fetch_bf16 fetch_bmx segsum topm")
+KERNELS = Ops(fetch_jobs, fetch_jobs_q8, fetch_jobs_bf16,
+              functools.partial(fetch_jobs, site="fetch_f32_blockmax"),
+              segsum_mask, block_topm)
+PLAIN = Ops(fetch_jobs_plain, fetch_jobs_q8_plain, fetch_jobs_bf16_plain,
+            fetch_jobs_plain, segsum_mask_plain, block_topm_plain)
 
 
 def bucket_jobs(need: int) -> int:
@@ -114,6 +123,22 @@ def pack_postings_q8(offsets: np.ndarray, doc_rows: np.ndarray,
     packed = np.full(n, np.uint32(n_docs) << np.uint32(8), np.uint32)
     packed[:len(rows)] = (rows << np.uint32(8)) | codes
     return packed.view(np.int32), scales
+
+
+def pack_values_bf16(values: np.ndarray, pad_to: int) -> np.ndarray:
+    """f32 values → bf16 pairs in int32 words (round to nearest even),
+    padded with zeros so ``2 * len(out) >= pad_to``. Value 2i is the low
+    half of word i: the uint16 halves are viewed as int32 on a
+    little-endian host, the order the fetch kernel unpacks."""
+    if sys.byteorder != "little":
+        raise RuntimeError("pack_values_bf16 assumes a little-endian host")
+    values = np.asarray(values, np.float32)
+    n = max(int(pad_to), len(values) + (len(values) & 1))
+    n += n & 1
+    v16 = np.zeros(n, np.uint16)
+    v16[:len(values)] = torch.from_numpy(values).to(torch.bfloat16).view(
+        torch.int16).numpy().view(np.uint16)
+    return v16.view(np.int32)
 
 
 def _blocked_certificate(bv: torch.Tensor, v: torch.Tensor, m: int,
@@ -182,22 +207,33 @@ def _sort_query_terms(q_terms: torch.Tensor, q_vals: torch.Tensor):
     return q_terms, q_vals.gather(1, order)
 
 
-def _retrieve_async(flat, valbits_flat, offsets, q_terms, q_vals, k: int,
-                    jobs_per_query: int, n_docs: int, ops: Ops):
-    """Shared f32/q8 dispatch: ``valbits_flat`` None selects the q8 layout
-    (``flat`` is then the packed word stream and ``q_vals`` scale-folded).
-    Returns (scores, rows, fallback, total, q_terms, q_vals) with the query
-    terms sorted."""
+def _fetch_layout(layout: str, flat, valbits_flat, q_terms, offsets, q_vals,
+                  jobs_per_query: int, n_docs: int, ops: Ops):
+    if layout == "q8":
+        return fetch_postings_dma_q8(flat, q_terms, offsets, q_vals,
+                                     jobs_per_query, n_docs,
+                                     fetch=ops.fetch_q8)
+    if layout == "bf16":
+        return fetch_postings_dma_bf16(flat, valbits_flat, q_terms, offsets,
+                                       q_vals, jobs_per_query, n_docs,
+                                       fetch=ops.fetch_bf16)
+    return fetch_postings_dma(flat, valbits_flat, q_terms, offsets, q_vals,
+                              jobs_per_query, n_docs, fetch=ops.fetch)
+
+
+def _retrieve_async(layout: str, flat, valbits_flat, offsets, q_terms,
+                    q_vals, k: int, jobs_per_query: int, n_docs: int,
+                    ops: Ops):
+    """Shared dispatch of the three layouts: "f32" (``flat`` rows,
+    ``valbits_flat`` value bits), "bf16" (``valbits_flat`` the packed
+    pairs) and "q8" (``flat`` the packed word stream, ``valbits_flat``
+    None, ``q_vals`` scale-folded). Returns (scores, rows, fallback, total,
+    q_terms, q_vals) with the query terms sorted."""
     T = q_terms.shape[1]
     q_terms, q_vals = _sort_query_terms(q_terms, q_vals)
-    if valbits_flat is None:
-        rows, contrib, total = fetch_postings_dma_q8(
-            flat, q_terms, offsets, q_vals, jobs_per_query, n_docs,
-            fetch=ops.fetch_q8)
-    else:
-        rows, contrib, total = fetch_postings_dma(
-            flat, valbits_flat, q_terms, offsets, q_vals, jobs_per_query,
-            n_docs, fetch=ops.fetch)
+    rows, contrib, total = _fetch_layout(layout, flat, valbits_flat, q_terms,
+                                         offsets, q_vals, jobs_per_query,
+                                         n_docs, ops)
     scores, top_rows, fallback = _rank_tail_async(rows, contrib, n_docs, k, T,
                                                   ops)
     return scores, top_rows, fallback, total, q_terms, q_vals
@@ -210,8 +246,22 @@ def segsort_retrieve_dma(rows_flat, valbits_flat, offsets, q_terms, q_vals,
     [V+1] int64, q_terms/q_vals [nq, T] (weight 0 ⇒ unused slot), all on
     one device. Returns (scores [nq, k], rows [nq, k], total [nq])."""
     s, r, fb, total, _, _ = _retrieve_async(
-        rows_flat, valbits_flat, offsets, q_terms, q_vals, k, jobs_per_query,
-        n_docs, ops)
+        "f32", rows_flat, valbits_flat, offsets, q_terms, q_vals, k,
+        jobs_per_query, n_docs, ops)
+    s, r = _finish(s, r, fb, k)
+    return s, r, total
+
+
+def segsort_retrieve_dma_bf16(rows_flat, valpacked_flat, offsets, q_terms,
+                              q_vals, k: int, jobs_per_query: int,
+                              n_docs: int, ops: Ops = KERNELS):
+    """segsort over the bf16-pair layout (rows [nnz + CHUNK2] int32, two
+    bf16 values per int32 word, CHUNK2-posting jobs): exact over the
+    bf16-rounded index, and equal to the f32 engine wherever the stored
+    values are bf16-representable."""
+    s, r, fb, total, _, _ = _retrieve_async(
+        "bf16", rows_flat, valpacked_flat, offsets, q_terms, q_vals, k,
+        jobs_per_query, n_docs, ops)
     s, r = _finish(s, r, fb, k)
     return s, r, total
 
@@ -222,18 +272,18 @@ def segsort_retrieve_dma_q8(packed_flat, offsets, q_terms, q_vals, k: int,
     """segsort over the q8 word layout; ``q_vals`` must arrive scale-folded
     (qw * scale[term]), so scores are exact over the stored codes."""
     s, r, fb, total, _, _ = _retrieve_async(
-        packed_flat, None, offsets, q_terms, q_vals, k, jobs_per_query,
+        "q8", packed_flat, None, offsets, q_terms, q_vals, k, jobs_per_query,
         n_docs, ops)
     s, r = _finish(s, r, fb, k)
     return s, r, total
 
 
 def _job_need(offsets, q_terms, q_vals) -> torch.Tensor:
-    """Per-query DMA job count [nq] on device (host ``job_need``'s twin)."""
+    """Per-query DMA job count [nq] on device (host ``job_need``'s twin for
+    the CHUNK layouts, the only ones the device handoff rides)."""
     qt = q_terms.long()
     lens = (offsets[qt + 1] - offsets[qt]) * (q_vals > 0)
-    starts = offsets[qt]
-    head = starts - (starts // ALIGN) * ALIGN
+    head = offsets[qt] % CHUNK
     return torch.where(lens > 0, -(-(head + lens) // CHUNK), 0).sum(dim=1)
 
 
@@ -243,8 +293,8 @@ def _packed_handoff_tail(flat, valbits_flat, offsets, q_terms, q_vals,
     rank tail, on-device job need, and the packed (score bits | rows |
     need) [nq, 2k+1] int32 result. Returns (buf, fallback)."""
     s, r, fb, _, q_terms, q_vals = _retrieve_async(
-        flat, valbits_flat, offsets, q_terms, q_vals, k, jobs_per_query,
-        n_docs, ops)
+        "f32" if valbits_flat is not None else "q8", flat, valbits_flat,
+        offsets, q_terms, q_vals, k, jobs_per_query, n_docs, ops)
     need = _job_need(offsets, q_terms, q_vals)
     buf = torch.cat([s.view(torch.int32), r.to(torch.int32),
                      need[:, None].to(torch.int32)], dim=1)
@@ -301,29 +351,36 @@ class SegsortEngine:
     """Owns the flat CSR on the device and runs query tiles over it.
 
     ``val_dtype="f32"`` keeps rows int32 and value bits int32 (8 B per
-    posting); ``"q8"`` keeps one ``(row24 << 8) | code8`` word per posting
-    (4 B) and folds the per-term dequant scales into the query weights.
-    The bf16-pair layout is not ported yet.
+    posting); ``"bf16"`` keeps rows int32 and two bf16 values per int32
+    word (6 B per posting, CHUNK2-posting jobs; scores are exact over the
+    bf16-rounded values); ``"q8"`` keeps one ``(row24 << 8) | code8`` word
+    per posting (4 B) and folds the per-term dequant scales into the query
+    weights.
 
     ``device_csr=(rows_flat, valbits_flat, offsets, n_docs)`` builds the
     engine over flat arrays that already live on the device (padded by at
-    least CHUNK past ``offsets[-1]`` with the n_docs sentinel; ``offsets`` a
-    host [V+1] array); for q8 pass ``(packed_flat, scales, offsets,
-    n_docs)`` with the host [V] scales of ``pack_postings_q8``. ``index``
-    is then ignored.
+    least one job, CHUNK or CHUNK2 for bf16, past ``offsets[-1]`` with the
+    n_docs sentinel; ``offsets`` a host [V+1] array); for bf16
+    ``valbits_flat`` is the packed pair array (``pack_values_bf16``), for
+    q8 pass ``(packed_flat, scales, offsets, n_docs)`` with the host [V]
+    scales of ``pack_postings_q8``. ``index`` is then ignored.
+
+    ``ops`` selects the kernels (default) or their plain versions for every
+    tile this engine runs.
     """
 
     def __init__(self, index=None, topk: int = 1000,
                  query_terms_budget: int = 64, val_dtype: str = "f32",
-                 device="cuda", device_csr=None):
-        if val_dtype not in ("f32", "q8"):
-            raise NotImplementedError(
-                f"val_dtype {val_dtype!r}: the port has the f32 and q8 "
-                "layouts (bf16 is not ported yet)")
+                 device="cuda", device_csr=None, ops: Ops = KERNELS):
+        if val_dtype not in ("f32", "bf16", "q8"):
+            raise ValueError(f"val_dtype {val_dtype!r}: f32, bf16 or q8")
         self.topk = topk
         self.T = query_terms_budget
         self.val_dtype = val_dtype
+        self.ops = ops
         self.fetch = "dma"
+        # job granularity of the value layout (job_need, bucket sizing, pad)
+        self._chunk = CHUNK2 if val_dtype == "bf16" else CHUNK
         self._host_scales = None
         self._scales_dev = None
         if device_csr is not None:
@@ -337,20 +394,26 @@ class SegsortEngine:
                                      f"{self.n_docs}")
                 self._host_scales = np.asarray(second, np.float32)
                 second = None
+            elif val_dtype == "bf16":
+                if 2 * second.shape[0] < flat.shape[0]:
+                    raise ValueError(f"bf16 pairs {tuple(second.shape)} hold "
+                                     f"fewer values than rows "
+                                     f"{tuple(flat.shape)}")
             elif second.shape != flat.shape:
                 raise ValueError(f"rows {tuple(flat.shape)} and value bits "
                                  f"{tuple(second.shape)} differ")
-            if flat.shape[0] < int(host_offsets[-1]) + CHUNK:
+            if flat.shape[0] < int(host_offsets[-1]) + self._chunk:
                 raise ValueError(
-                    "device_csr arrays must be padded >= one CHUNK past "
-                    "offsets[-1] with the n_docs sentinel (an aligned fetch "
-                    "window near the end reads past the last posting)")
+                    f"device_csr arrays must be padded >= one job "
+                    f"({self._chunk} postings) past offsets[-1] with the "
+                    "n_docs sentinel (an aligned fetch window near the end "
+                    "reads past the last posting)")
             self.rows_flat, self.valbits_flat = flat, second
         else:
             self.device = torch.device(device)
             self.n_docs = index.nb_docs()
             host_offsets = np.asarray(index.offsets, np.int64)
-            pad = CHUNK
+            pad = self._chunk
             if val_dtype == "q8":
                 packed, self._host_scales = pack_postings_q8(
                     index.offsets, index.doc_rows, index.values, self.n_docs,
@@ -360,11 +423,14 @@ class SegsortEngine:
             else:
                 rows = np.concatenate([index.doc_rows.astype(np.int32),
                                        np.full(pad, self.n_docs, np.int32)])
-                vals = np.concatenate([index.values.astype(np.float32),
-                                       np.zeros(pad, np.float32)])
+                if val_dtype == "bf16":
+                    vals = pack_values_bf16(index.values, len(rows))
+                else:
+                    vals = np.concatenate([
+                        index.values.astype(np.float32),
+                        np.zeros(pad, np.float32)]).view(np.int32)
                 self.rows_flat = torch.from_numpy(rows).to(self.device)
-                self.valbits_flat = torch.from_numpy(
-                    vals.view(np.int32)).to(self.device)
+                self.valbits_flat = torch.from_numpy(vals).to(self.device)
         if self.rows_flat.shape[0] >= 2 ** 31:
             raise ValueError("nnz exceeds int32: shard the index")
         self._host_offsets = host_offsets
@@ -382,11 +448,13 @@ class SegsortEngine:
 
     def job_need(self, q_terms: np.ndarray, q_vals: np.ndarray) -> np.ndarray:
         """Per-query DMA job count [nq] from the host offsets: the cost
-        model of the serving broker and of this engine's bucket choice."""
+        model of the serving broker and of this engine's bucket choice.
+        bf16 counts CHUNK2-posting jobs."""
+        c = self._chunk
         starts = self._host_offsets[q_terms]
         lens = self._host_lens[q_terms] * (q_vals > 0)
-        heads = starts % CHUNK
-        return np.sum(-(-(heads + lens) // CHUNK) * (lens > 0), axis=1)
+        heads = starts % c
+        return np.sum(-(-(heads + lens) // c) * (lens > 0), axis=1)
 
     def _scales_on_device(self) -> torch.Tensor:
         if self._scales_dev is None:
@@ -417,8 +485,8 @@ class SegsortEngine:
         qt = torch.from_numpy(q_terms).to(self.device)
         qv = torch.from_numpy(q_vals).to(self.device)
         s, r, fb, _, _, _ = _retrieve_async(
-            self.rows_flat, self.valbits_flat, self.offsets, qt, qv, k, jobs,
-            self.n_docs, KERNELS)
+            self.val_dtype, self.rows_flat, self.valbits_flat, self.offsets,
+            qt, qv, k, jobs, self.n_docs, self.ops)
         return s, r, fb, k
 
     def finalize(self, payload) -> tuple[np.ndarray, np.ndarray]:
@@ -435,14 +503,17 @@ class SegsortEngine:
         [nq, T], e.g. the encoder's top-T) at a caller-chosen standing job
         bucket, with no host read or upload. ``finalize_handoff`` reads the
         packed result; rows whose need exceeded the bucket were truncated
-        and must be re-routed by the caller (the text frontend does)."""
+        and must be re-routed by the caller (the text frontend does). f32
+        and q8 layouts only, as in the reference."""
+        if self.val_dtype == "bf16":
+            raise ValueError("the device handoff rides the f32/q8 layouts")
         k = min(topk or self.topk, self.n_docs)
         if self.val_dtype == "q8":
             q_vals_dev = q_vals_dev * self._scales_on_device()[
                 q_terms_dev.long()]
         buf, fb = _packed_handoff_tail(
             self.rows_flat, self.valbits_flat, self.offsets, q_terms_dev,
-            q_vals_dev, k, jobs_per_query, self.n_docs, KERNELS)
+            q_vals_dev, k, jobs_per_query, self.n_docs, self.ops)
         return buf, k, fb
 
     @staticmethod

@@ -11,7 +11,9 @@ dispatch with result drain:
   the shapes a sample of real traffic exercises before serving.
 * **Dispatch ahead under load.** While a tile runs on the device, the
   previous tile's results are read and resolved; an idle server resolves
-  at once.
+  at once. A two-pass engine (the block-max engine) has the previous
+  tile advanced to its second pass (``advance``) right after the next
+  tile's first pass is dispatched, so the second pass overlaps it.
 * **Micro-batching window.** A request waits at most ``max_wait_ms`` for
   co-riders.
 * **Cost-aware admission.** On a power-law index per-query job need varies
@@ -134,6 +136,14 @@ class SparseTileBackend:
         qt, qv = self.pack(reqs)
         return self.engine.retrieve_tile_async(None, self.topk,
                                                sparsified=(qt, qv))
+
+    def advance(self, payload):
+        """Advance a two-pass engine's payload to its second stage (read
+        pass 1, dispatch pass 2: ``BlockMaxSegsortEngine.continue_async``)
+        so pass 2 overlaps the next tile's pass 1 instead of running
+        inside ``drain``. Idempotent; a no-op for single-pass engines."""
+        fn = getattr(self.engine, "continue_async", None)
+        return fn(payload) if fn is not None else payload
 
     def drain(self, payload, reqs: list) -> list:
         scores, rows = self.engine.finalize(payload)
@@ -525,6 +535,20 @@ class RetrievalServer:
                         continue
                     self.stage_s["dispatch"] += time.perf_counter() - t0
                     pending.append((batch, payload))
+                    # two-pass engines: advance the previous tile to its
+                    # second pass while this tile's first pass runs. Like
+                    # dispatch and drain, a failure fails its own batch
+                    # and never the worker
+                    adv = getattr(self.backend, "advance", None)
+                    if adv is not None and len(pending) >= 2:
+                        prev_batch, prev_payload = pending[-2]
+                        try:
+                            pending[-2] = (prev_batch, adv(prev_payload))
+                        except Exception as e:
+                            for _, _, fut, _ in prev_batch:
+                                if not fut.done():
+                                    fut.set_exception(e)
+                            del pending[-2]
                     depth = (self.max_pipeline_depth
                              if (self._q.qsize() + len(self._stash)
                                  >= self.backend.width)

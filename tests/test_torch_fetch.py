@@ -112,3 +112,76 @@ def test_fetch_q8_matches_reference_high_rows():
         np.testing.assert_array_equal(w, g.numpy())
     valid_rows = got[0].numpy()[got[0].numpy() != SENTINEL]
     assert (valid_rows >= 1 << 23).all()
+
+
+@pytest.mark.parametrize("use_scan", [False, True])
+def test_job_table_chunk2_matches_reference(use_scan):
+    """The bf16 layout's CHUNK2 geometry: sources aligned to CHUNK2, jobs
+    of CHUNK2 postings."""
+    rng = np.random.default_rng(5)
+    offsets, _, _ = _corpus(rng)
+    qt, qv = _queries(rng, len(offsets) - 1, nq=4, T=8)
+    c = fetch.CHUNK2
+    starts = offsets[qt]
+    lens = (offsets[qt + 1] - starts) * (qv > 0)
+    src_al = (starts // c) * c
+    head = starts - src_al
+    n_jobs = np.where(lens > 0, -(-(head + lens) // c), 0)
+    cum = np.cumsum(n_jobs, axis=1)
+    prev = cum - n_jobs
+    r_start = prev * c + head
+    r_end = r_start + lens
+    J = int(cum[:, -1].max()) + 2
+    want = ref._job_table(*(jnp.asarray(a.astype(np.int32)) for a in
+                            (src_al, prev, cum, r_start, r_end)),
+                          jnp.asarray(qv), J, use_scan, chunk=c)
+    got = fetch._job_table(*(_t(a) for a in
+                             (src_al, prev, cum, r_start, r_end, qv)), J, c)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    src = fetch.job_table(_t(qt), _t(offsets), _t(qv), J,
+                          int(offsets[-1]) + c, c)[0]
+    assert (src.numpy() % c == 0).all()
+
+
+def _bf16_corpus(rng):
+    """Rows padded by CHUNK2 and values of both signs, packed in pairs:
+    a swap of a word's halves, or a lost sign bit, changes the result."""
+    from scaling_retriever_tpu_torch.ops.segsort_scoring import (
+        pack_values_bf16)
+
+    offsets, rows, _ = _corpus(rng, high_rows=True)
+    nnz = int(offsets[-1])
+    rows = np.concatenate([rows[:nnz], np.full(fetch.CHUNK2, SENTINEL,
+                                               np.int32)])
+    vals = rng.uniform(-3.0, 3.0, nnz).astype(np.float32)
+    return offsets, rows, vals, pack_values_bf16(vals, len(rows))
+
+
+@pytest.mark.parametrize("jobs", [None, 2])
+def test_fetch_bf16_matches_reference(jobs):
+    """Odd list heads, lists crossing 2048 boundaries, both halves of a
+    word; ``jobs=2`` truncates most queries' job tables."""
+    rng = np.random.default_rng(6)
+    offsets, rows, vals, packed = _bf16_corpus(rng)
+    assert (offsets % 2 == 1).any()
+    qt, qv = _queries(rng, len(offsets) - 1, nq=4, T=8)
+    need = int(fetch.job_table(_t(qt), _t(offsets), _t(qv), 4096, len(rows),
+                               fetch.CHUNK2)[4].max())
+    J = jobs or need + 1
+    want = _masked(ref.fetch_postings_dma_bf16(
+        jnp.asarray(rows), jnp.asarray(packed), jnp.asarray(qt),
+        jnp.asarray(offsets), jnp.asarray(qv), J, interpret=True))
+    got = fetch.fetch_postings_dma_bf16(_t(rows), _t(packed), _t(qt),
+                                        _t(offsets), _t(qv), J, SENTINEL)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g.numpy())
+    assert got[1].numpy().min() < 0 < got[1].numpy().max()
+
+
+def test_unpack_bf16_pairs_order_and_sign():
+    """Word i holds value 2i in its low half; the high half's sign bit
+    survives (an arithmetic shift would smear it into the low value)."""
+    halves = np.array([0x3F80, 0xBF80, 0xC000, 0x4040], np.uint16)  # 1 -1 -2 3
+    words = torch.from_numpy(halves.view(np.int32).copy())
+    assert fetch.unpack_bf16_pairs(words).tolist() == [1.0, -1.0, -2.0, 3.0]

@@ -1,6 +1,7 @@
-"""The torch port and chip_smoke.py import neither JAX nor the JAX package:
-an AST scan of every file, and an import of every module in a fresh
-interpreter that must leave ``jax`` out of ``sys.modules``."""
+"""The torch port and chip_smoke.py import neither JAX nor the JAX package
+(nor ml_dtypes, which the machine with the card lacks): an AST scan of
+every file, and an import of every module in a fresh interpreter that
+must leave them out of ``sys.modules``."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "scaling_retriever_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "scaling_retriever_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "scaling_retriever_tpu", "ml_dtypes")
 
 
 def _port_files():
@@ -51,7 +52,7 @@ def test_port_imports_without_jax():
         for p in _port_files() if p.startswith(PKG))
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
-              "('jax', 'jaxlib', 'flax', 'scaling_retriever_tpu')]\n"
+              f"{FORBIDDEN!r}]\n"
               "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))

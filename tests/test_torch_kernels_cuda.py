@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from scaling_retriever_tpu_torch.index.inverted_index import SparseIndex
+from scaling_retriever_tpu_torch.ops import blockmax as bmx
 from scaling_retriever_tpu_torch.ops import cuda_lib, fetch, segsum, topm
 from scaling_retriever_tpu_torch.ops import segsort_scoring as ss
 from scaling_retriever_tpu_torch.utils.utils import tie_equal_topk
@@ -62,6 +63,78 @@ def test_fetch_kernel_matches_plain(cuda, layout):
     assert cuda_lib.LAUNCHES[f"fetch_{layout}"] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int((got[0] >= 1 << 23).sum()) > 0
+
+
+def test_fetch_bf16_kernel_matches_plain(cuda):
+    """B3: odd list heads, lists crossing 2048 boundaries, values of both
+    signs differing from posting to posting (a swap of a word's halves or
+    a lost sign bit would show), rows >= 2^23."""
+    rng = np.random.default_rng(5)
+    V = 40
+    lens = rng.integers(0, 5000, V)
+    offsets = np.zeros(V + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    nnz = int(offsets[-1])
+    n = nnz + fetch.CHUNK2
+    rows = rng.integers(1 << 22, SENTINEL, n).astype(np.int32)
+    packed = ss.pack_values_bf16(rng.uniform(-3, 3, nnz).astype(np.float32), n)
+    qt = rng.integers(0, V, (8, 12)).astype(np.int32)
+    qv = rng.uniform(0.1, 2.0, (8, 12)).astype(np.float32)
+    qv[rng.random(qv.shape) < 0.2] = 0.0
+    table = fetch.job_table(_t(qt, cuda), _t(offsets, cuda), _t(qv, cuda),
+                            48, n, fetch.CHUNK2)[:4]
+    args = (_t(rows, cuda), _t(packed, cuda), *table, 48, SENTINEL)
+    before = cuda_lib.LAUNCHES["fetch_bf16"]
+    got = fetch.fetch_jobs_bf16(*args)
+    want = fetch.fetch_jobs_bf16_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["fetch_bf16"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert float(got[1].min()) < 0 < float(got[1].max())
+
+
+def test_blockmax_site_matches_plain(cuda):
+    """B1 at the block-max site: a host-built pass-1 table (plus an entry
+    of weight -1, which must fetch nothing) through the kernel and the
+    plain version, and through both rank tails."""
+    rng = np.random.default_rng(6)
+    V, N, per = 24, 20000, 3000
+    rows = np.concatenate([np.sort(rng.choice(N, per, replace=False))
+                           for _ in range(V)]).astype(np.int32)
+    vals = rng.uniform(0.1, 1.0, V * per).astype(np.float32)
+    offsets = np.arange(V + 1, dtype=np.int64) * per
+    meta = bmx.build_chunk_meta(offsets, rows, vals)
+    qt = np.stack([rng.choice(V, 6, replace=False) for _ in range(4)]
+                  ).astype(np.int32)
+    qv = rng.uniform(0.2, 1.5, qt.shape).astype(np.float32)
+    ov = bmx.build_overlay(meta, offsets, qt, qv, N)
+    plan = bmx.job_table(ov, bmx.keep_entries(ov, bmx.cover_tau(ov, 40)))
+    packed = plan["packed"].copy()
+    free = int(np.flatnonzero(packed[3, 0] == 0)[0])
+    packed[:, 0, free] = [int(packed[0, 0, 0]), 0, fetch.CHUNK,
+                          np.float32(-1.0).view(np.int32)]
+    pad = np.full(fetch.CHUNK, N, np.int32)
+    rows_d = _t(np.concatenate([rows, pad]), cuda)
+    bits_d = _t(np.concatenate([vals, pad * 0.0]).astype(np.float32)
+                .view(np.int32), cuda)
+    packed_d = _t(packed, cuda)
+    J = plan["jobs_per_query"]
+    inputs = bmx.fetch_inputs(packed_d, rows_d.shape[0])
+    before = cuda_lib.LAUNCHES["fetch_f32_blockmax"]
+    got = ss.KERNELS.fetch_bmx(rows_d, bits_d, *inputs, J, N)
+    want = fetch.fetch_jobs_plain(rows_d, bits_d, *inputs, J, N)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["fetch_f32_blockmax"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    k = 20
+    a = bmx.blockmax_retrieve_dma(rows_d, bits_d, packed_d, k, J, N, 6).cpu()
+    b = bmx.blockmax_retrieve_dma(rows_d, bits_d, packed_d, k, J, N, 6,
+                                  ops=ss.PLAIN).cpu()
+    sa, sb = a[:, :k].view(torch.float32).numpy(), b[:, :k].view(
+        torch.float32).numpy()
+    for q in range(4):
+        tie_equal_topk(b[q, k:].numpy(), sb[q], a[q, k:].numpy(), sa[q],
+                       rtol=1e-6)
 
 
 def _sorted_runs(rng, nq, P, max_run, sentinel):
@@ -119,7 +192,7 @@ def test_segsort_kernels_match_plain_path(cuda):
     qt = np.stack([rng.choice(V, 8, replace=False) for _ in range(4)]
                   ).astype(np.int32)
     qv = rng.uniform(0.2, 2.0, (4, 8)).astype(np.float32)
-    for val_dtype in ("f32", "q8"):
+    for val_dtype in ("f32", "bf16", "q8"):
         gpu = ss.SegsortEngine(idx, topk=20, query_terms_budget=8,
                                val_dtype=val_dtype, device=cuda)
         cpu = ss.SegsortEngine(idx, topk=20, query_terms_budget=8,

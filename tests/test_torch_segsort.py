@@ -225,8 +225,17 @@ def test_index_files_load_in_both_packages(tmp_path):
 
 def test_engine_rejects_what_it_lacks(corpus):
     idx, _ = corpus
-    with pytest.raises(NotImplementedError):
-        port.SegsortEngine(idx, val_dtype="bf16", device="cpu")
+    with pytest.raises(ValueError, match="val_dtype"):
+        port.SegsortEngine(idx, val_dtype="f16", device="cpu")
+    bf16 = port.SegsortEngine(idx, topk=10, query_terms_budget=T,
+                              val_dtype="bf16", device="cpu")
+    with pytest.raises(ValueError, match="handoff"):
+        bf16.retrieve_tile_handoff_async(torch.zeros((1, T), dtype=torch.int32),
+                                         torch.ones((1, T)), 64)
     rows = torch.zeros(idx.nnz, dtype=torch.int32)    # no CHUNK pad
     with pytest.raises(ValueError, match="padded"):
         port.SegsortEngine(device_csr=(rows, rows, idx.offsets, N_DOCS))
+    rows = torch.zeros(idx.nnz + 1024, dtype=torch.int32)  # < one CHUNK2
+    with pytest.raises(ValueError, match="padded"):
+        port.SegsortEngine(device_csr=(rows, rows, idx.offsets, N_DOCS),
+                           val_dtype="bf16")

@@ -346,3 +346,88 @@ def test_random_params_are_seeded():
         assert torch.equal(x, y), n
     assert a.lm_head is None and (a.layers[0].input_norm == 1).all()
     assert 0.015 < float(a.embed_tokens.weight.std()) < 0.025
+
+
+def _queue_then_start(server, reqs):
+    """Queue every request before the worker exists, so the pipeline
+    holds two tiles at once (the advance step runs only then)."""
+    server._started = True
+    futs = [server.submit(r) for r in reqs]
+    server._started = False
+    server.start()
+    return futs
+
+
+def test_server_over_blockmax_engine_returns_engine_results():
+    """Pre-encoded requests through RetrievalServer over the two-pass
+    block-max engine: the broker advances each tile to its second pass
+    while the next tile's first runs, and returns what the engine returns
+    for the same queries."""
+    from test_torch_blockmax import TB, make_clustered, make_queries
+
+    from scaling_retriever_tpu_torch.ops.blockmax import BlockMaxSegsortEngine
+
+    idx = SparseIndex.from_triples(*make_clustered())
+    eng = BlockMaxSegsortEngine(idx, topk=K, query_terms_budget=TB,
+                                cover=1.5, gate=0.99, device="cpu")
+    qt, qv = make_queries(16, seed=3)
+    reqs = [(qt[i][qv[i] > 0], qv[i][qv[i] > 0]) for i in range(16)]
+    backend = SparseTileBackend(eng, idx.doc_ids, idx.nb_docs(), width=4,
+                                t_budget=TB, topk=K)
+    advanced = []
+    real = eng.continue_async
+    eng.continue_async = lambda p: advanced.append(p[0]) or real(p)
+    server = RetrievalServer(backend, max_wait_ms=0.5)
+    futs = _queue_then_start(server, reqs)
+    try:
+        got = [f.result(timeout=60) for f in futs]
+    finally:
+        server.stop()
+    assert "bmx" in advanced and eng.stats()["pruned_tiles"] >= 4
+    del eng.continue_async
+    for s in range(0, 16, 4):
+        scores, rows = eng.finalize(eng.retrieve_tile_async(
+            None, K, sparsified=backend.pack(reqs[s:s + 4])))
+        for i in range(4):
+            ids, sc = got[s + i]
+            tie_equal_topk([idx.doc_ids[r] for r in rows[i]], scores[i],
+                           ids, sc, rtol=1e-6)
+
+
+def test_broker_survives_advance_failure(stack):
+    """A two-pass backend whose advance raises fails only its own batch;
+    the worker goes on serving (tests/test_serving.py's scenario)."""
+    idx, eng, _, _ = stack
+    backend = SparseTileBackend(eng, idx.doc_ids, idx.nb_docs(), width=1,
+                                t_budget=T, topk=K)
+    calls = {"n": 0}
+
+    def advance(payload):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise RuntimeError("pass-2 pruning exploded")
+        return payload
+
+    backend.advance = advance
+    texts = _texts(np.random.default_rng(9), 4)
+    server = RetrievalServer(backend, max_wait_ms=0.5)
+    server.warmup([_reps(texts[0])], passes=1)
+    futs = _queue_then_start(server, [_reps(t) for t in texts])
+    try:
+        outcomes = []
+        for f in futs:
+            try:
+                outcomes.append(("ok", f.result(timeout=10)))
+            except RuntimeError as e:
+                outcomes.append(("err", str(e)))
+        errs = [o for o in outcomes if o[0] == "err"]
+        assert len(errs) == 1 and "pass-2" in errs[0][1]
+        for (kind, res), text in zip(outcomes, texts):
+            if kind == "ok":
+                tie_equal_topk(*_oracle(idx, text), *res, rtol=1e-5)
+    finally:
+        server.stop()
+    calls["n"] = 5
+    with RetrievalServer(backend, max_wait_ms=0.5) as s2:
+        ids, scores = s2.search(_reps(texts[0]))
+        tie_equal_topk(*_oracle(idx, texts[0]), ids, scores, rtol=1e-5)
