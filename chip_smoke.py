@@ -14,7 +14,9 @@ Phases (any failure raises and exits non-zero):
      queries x 512 jobs of 1024, or 384 jobs of 2048 for bf16; the
      block-max site on a real pass-1 job table), timing kernel, plain
      version and, where one exists, a single PyTorch call computing the
-     same function;
+     same function; B5 also on tied, signed-zero and all -inf blocks and
+     over its (m, block) range, and timed on a slab of ties and in its
+     earlier round-loop design (csrc/topm_rounds.cu, timing only);
   3. run 64-query tiles through SegsortEngine on the three layouts and
      compare the kernel path's top-1000 with the plain path's (tie-equal;
      bf16 also with the f32 engine), a small index against a brute-force
@@ -458,7 +460,26 @@ def kernel_phase(dev, eng_f32, eng_q8, eng_bf16, tile, card_s):
     check(bool((i[:8, :4, :4] == lanes.int()).all()
                and (i[:8, :4, 4:] == 0).all()),
           "exhausted blocks must return their lanes, then repeat lane 0")
+    n_cases = topm_cases(out)
+    # the same shape with every block all ties, and the earlier round-loop
+    # design (csrc/topm_rounds.cu) on the engine slab
     nblk = P // block
+    ties = torch.full_like(out, 1.5)
+    v, i = topm.block_topm(ties, m, block)
+    pv, pi = topm.block_topm_plain(ties, m, block)
+    check(torch.equal(v, pv) and torch.equal(i, pi)
+          and bool((i == torch.arange(m, device=dev)).all()),
+          "B5 on the tie slab != plain, or not the lowest m lanes")
+    pv, pi = topm.block_topm_plain(out, m, block)
+    rv, ri = torch.empty_like(pv), torch.empty_like(pi)
+
+    def rounds():
+        check(topm_rounds(out, rv, ri, nblk, block, m) == 0,
+              "srt_topm_rounds launch failed")
+
+    rounds()
+    check(torch.equal(rv, pv) and torch.equal(ri, pi),
+          "the earlier top-m design != plain")
     b_ms, b_by = bound(TILE * P * 4 + TILE * nblk * m * 8, TILE * P)
     report.append({
         "name": "topm", "route": "cuda",
@@ -470,8 +491,64 @@ def kernel_phase(dev, eng_f32, eng_q8, eng_bf16, tile, card_s):
                             3, 1),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(
-            lambda: torch.topk(out.view(TILE, nblk, block), m), 20)})
+            lambda: torch.topk(out.view(TILE, nblk, block), m), 20),
+        "tie_ms": time_ms(lambda: topm.block_topm(ties, m, block), 20),
+        "before_ms": time_ms(rounds, 20)})
+    r = report[-1]
+    log(f"B5 top-m at [{TILE}, {P}], block {block}, m {m}: engine slab "
+        f"{r['ms']:.4f} ms, tie slab {r['tie_ms']:.4f} ms, earlier round-loop"
+        f" design {r['before_ms']:.4f} ms, torch.topk {r['library_ms']:.4f} "
+        f"ms, bound {b_ms:.4f} ms; == plain on the engine slab, the tie slab"
+        f" and {n_cases} more slabs; card {card_s}")
     return report
+
+
+def topm_rounds(s, vals, idxs, nblk: int, block: int, m: int) -> int:
+    """One launch of the earlier top-m design (timing only: no launch
+    count, no wrapper of the port calls it); returns its CUDA error."""
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+
+    return cuda_lib.library().srt_topm_rounds(
+        s.data_ptr(), vals.data_ptr(), idxs.data_ptr(), s.shape[0], nblk,
+        block, m, torch.cuda.current_stream(s.device).cuda_stream)
+
+
+def topm_cases(out) -> int:
+    """B5 beyond the engine slab, kernel == plain bit for bit: 4 rows x 8
+    blocks of 4096 from the engine slab with block 0 all ties (1.5), block
+    1 -0.0/+0.0 alternating from lane 0, block 2 all -inf and block 3
+    +0.0/-0.0 alternating with five lanes of 1.0, at m 32 and 125 (the
+    engine's m at 8 blocks and k = 1000) and at m 128 with block 128 and
+    16384; the whole engine slab at m 128 with block 128 and 16384.
+    Returns the number of slabs checked."""
+    from scaling_retriever_tpu_torch.ops import topm
+
+    dev = out.device
+    adv = out[:4, :8 * 4096].clone().view(4, 8, 4096)
+    adv[:, 0] = 1.5
+    adv[:, 1] = 0.0
+    adv[:, 1, 0::2] = -0.0
+    adv[:, 2] = float("-inf")
+    adv[:, 3] = -0.0
+    adv[:, 3, 0::2] = 0.0
+    adv[:, 3, torch.tensor([7, 100, 2048, 3001, 4095], device=dev)] = 1.0
+    adv = adv.view(4, -1)
+    n = 0
+    for s, m, block in ((adv, 32, 4096), (adv, 125, 4096), (adv, 128, 128),
+                        (adv, 128, 16384), (out, 128, 128),
+                        (out, 128, 16384)):
+        v, i = topm.block_topm(s, m, block)
+        pv, pi = topm.block_topm_plain(s, m, block)
+        check(torch.equal(v, pv) and torch.equal(i, pi),
+              f"B5 != plain at m {m}, block {block}")
+        if block == 4096:
+            lanes = torch.arange(m, device=dev, dtype=torch.int32)
+            check(bool((i[:, 0] == lanes).all() and (i[:, 1] == lanes).all()
+                       and (i[:, 2] == 0).all()
+                       and torch.isneginf(v[:, 2]).all()),
+                  "B5: tied, signed-zero or -inf blocks out of order")
+        n += 1
+    return n
 
 
 def log_kernels(report, card_s) -> None:

@@ -27,7 +27,7 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
-SOURCES = ("fetch.cu", "segsum.cu", "topm.cu")
+SOURCES = ("fetch.cu", "segsum.cu", "topm.cu", "topm_rounds.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
@@ -44,6 +44,8 @@ SIGNATURES = {
     "srt_fetch_bf16": [_P] * 8 + [_I64, _I32, _I32, _P],
     "srt_segsum": [_P] * 3 + [_I64, _I64, _I32, _P],
     "srt_topm": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
+    # the earlier top-m design, for chip_smoke.py's before/after timing only
+    "srt_topm_rounds": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
 }
 
 # fetch_f32_blockmax counts B1's second call site (ops/blockmax.py)

@@ -6,7 +6,8 @@ descending with block-local int32 indices, ties to the lower index. Once a
 block has fewer than m finite values left, each later round returns -inf
 at index 0 (the lowest -inf lane, taken or not): the reference does this
 and the port keeps it, so the plain version is the m-round loop itself,
-not a stable sort.
+not a stable sort. The CUDA kernel (``csrc/topm.cu``) computes the same
+output in closed form by an exact radix select, with no rounds.
 """
 
 from __future__ import annotations
@@ -32,22 +33,39 @@ def block_topm_plain(s: torch.Tensor, m: int, block: int):
     return vals, idxs
 
 
+# the kernel's limits (csrc/topm.cu); m <= min(128, block) is the
+# reference's own
+KERNEL_MAX_BLOCK = 16384
+KERNEL_MAX_BLOCKS = 2 ** 31 - 1     # nq * n/block, counted in int32
+
+
+def check_kernel_shape(nq: int, nblk: int, block: int) -> None:
+    """Raise ValueError for a shape the CUDA kernel does not take."""
+    if block % 128 or not 128 <= block <= KERNEL_MAX_BLOCK:
+        raise ValueError(f"block_topm kernel takes a block that is a multiple "
+                         f"of 128 in [128, {KERNEL_MAX_BLOCK}] (block={block})")
+    if nq * nblk > KERNEL_MAX_BLOCKS:
+        raise ValueError(f"block_topm kernel takes at most "
+                         f"{KERNEL_MAX_BLOCKS} blocks (nq={nq} x "
+                         f"{nblk} blocks)")
+
+
 def block_topm(s: torch.Tensor, m: int, block: int):
     """Top-``m`` of every ``block`` lanes of ``s`` [nq, n] f32 → (vals
     [nq, n/block, m] descending, idxs [nq, n/block, m] block-local int32);
-    kernel B5 on CUDA (block a multiple of 1024, at most 12288; m <= 128)."""
+    kernel B5 on CUDA (block a multiple of 128 in [128, 16384], 1 <= m <=
+    min(128, block), nq * n/block < 2^31). A -0.0 the kernel keeps comes
+    out as +0.0 (equal under ==, as the reference compares)."""
     nq, n = s.shape
     nblk = n // block
     if nblk * block != n or not 1 <= m <= min(128, block):
-        raise ValueError(f"block_topm: n={n}, block={block}, m={m}")
+        raise ValueError(f"block_topm takes n % block == 0 and 1 <= m <= "
+                         f"min(128, block) (n={n}, block={block}, m={m})")
     if s.device.type == "cpu":
         return block_topm_plain(s, m, block)
     if s.device.type != "cuda":
         raise ValueError(f"no block_topm for device {s.device}")
-    if block % 1024 or block > 12288 or nq > 65535:
-        raise ValueError(f"block_topm kernel takes block % 1024 == 0, "
-                         f"block <= 12288 and nq <= 65535 (block={block}, "
-                         f"nq={nq})")
+    check_kernel_shape(nq, nblk, block)
     dev = s.device
     cuda_lib.check_cuda("s", s, torch.float32, dev)
     vals = torch.empty(nq, nblk, m, dtype=torch.float32, device=dev)

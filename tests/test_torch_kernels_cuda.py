@@ -173,11 +173,68 @@ def test_topm_kernel_matches_plain(cuda):
     s[3, 4096:8192] = -np.inf
     s[3, 4096 + np.array([5, 9, 17])] = [1.0, 3.0, 2.0]   # < m finite
     st = _t(s, cuda)
+    before = cuda_lib.LAUNCHES["topm"]
     v, i = topm.block_topm(st, 32, 4096)
     pv, pi = topm.block_topm_plain(st, 32, 4096)
     torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["topm"] == before + 1
     assert torch.equal(v, pv) and torch.equal(i, pi)
     assert i[3, 1].tolist() == [9, 17, 5] + [0] * 29
+
+
+def _topm_blocks(rng, block):
+    """Eight [block] rows: normals, rounded normals (ties), all equal, all
+    -inf, -0.0/+0.0 alternating from lane 0, +0.0/-0.0 alternating with
+    five positive lanes, normals with two +inf lanes, three finite values
+    among -inf lanes."""
+    x = np.zeros((8, block), np.float32)
+    x[0] = rng.standard_normal(block)
+    x[1] = np.round(rng.standard_normal(block) * 2)
+    x[2] = 1.5
+    x[3] = -np.inf
+    x[4, 0::2] = -0.0
+    x[5, 1::2] = -0.0
+    x[5, rng.choice(block, 5, replace=False)] = 1.0
+    x[6] = rng.standard_normal(block)
+    x[6, [3, block // 2]] = np.inf
+    x[7] = -np.inf
+    x[7, [5, 9, 17]] = [1.0, 3.0, 2.0]
+    return x
+
+
+@pytest.mark.parametrize("m,block", [(1, 128), (128, 128), (32, 1024),
+                                     (32, 4096), (125, 4096), (128, 4096),
+                                     (7, 12288), (128, 16384)])
+def test_topm_kernel_adversarial_blocks(cuda, m, block):
+    """Kernel against plain, bit for bit, over the kernel's (m, block)
+    range, on every adversarial block in every position of a 3-row slab."""
+    rng = np.random.default_rng(m + block)
+    x = _topm_blocks(rng, block)
+    s = np.concatenate([x, np.roll(x, 3, axis=0), x[::-1]], axis=0)
+    st = _t(s.reshape(3, 8 * block), cuda)
+    v, i = topm.block_topm(st, m, block)
+    pv, pi = topm.block_topm_plain(st, m, block)
+    torch.cuda.synchronize()
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    assert (i[0, 2] == torch.arange(m, device=cuda)).all()       # all equal
+    assert (i[0, 3] == 0).all() and torch.isneginf(v[0, 3]).all()
+    assert (i[0, 4] == torch.arange(m, device=cuda)).all()       # +-0.0
+
+
+def test_topm_kernel_limits(cuda):
+    """The wrapper raises on a CUDA tensor outside the kernel's limits and
+    launches at both ends of its block range."""
+    for n, block in ((256, 64), (16512, 16512), (4000, 4000)):
+        with pytest.raises(ValueError, match="block_topm kernel takes"):
+            topm.block_topm(torch.zeros(2, n, device=cuda), 4, block)
+    for block in (128, 16384):
+        s = torch.randn(2, 2 * block, device=cuda)
+        before = cuda_lib.LAUNCHES["topm"]
+        v, i = topm.block_topm(s, 128, block)
+        pv, pi = topm.block_topm_plain(s, 128, block)
+        torch.cuda.synchronize()
+        assert cuda_lib.LAUNCHES["topm"] == before + 1
+        assert torch.equal(v, pv) and torch.equal(i, pi)
 
 
 def test_segsort_kernels_match_plain_path(cuda):
