@@ -28,7 +28,21 @@ Phases (any failure raises and exits non-zero):
      with QueryEncoderFrontend on the q8 index (device handoff) plus
      pre-encoded requests on the f32 index; pre-encoded requests on the
      bf16 index; pre-encoded requests on the block-max engine;
-  5. print the card, per-kernel numbers as one JSON line, and last
+  5. the offline evaluation path from host copies of both corpora, each
+     engine built, run, checked and freed in turn: SparseRetrieval over a
+     Dev-size stream (6,980 pre-encoded 48-term queries) on the f32, bf16
+     and q8 layouts (against the plain-ops engine and each other), 64
+     texts at Llama-3.2-1B width through the hot doc-major route (against
+     retrieve_doc_major, a term-major scorer and the "xla" engine; the
+     scan timed beside its earlier gather formulation), the hot route on
+     stream queries, fetch="gather", the block-max and maxscore engines
+     on the clustered corpus (against "segsort"; B1, B4 and B5 against
+     their plain versions at maxscore's prefix slab), eval_sparse's
+     retrieval (on a depth-cut copy saved to disk, with --passes 2;
+     maxscore, certified there, against it) and evaluate_msmarco (on the
+     f32 run.json, against the metrics of the plain path's run), each
+     offline path's launch counts read as in 4;
+  6. print the card, per-kernel numbers as one JSON line, and last
      {"ok": true, "device": {...}}.
 """
 
@@ -36,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -59,11 +74,17 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM data sheet, non-tensor f32
 
 
-# the kernels each serving path must launch (phase 4)
+# the kernels each serving path (phase 4) and offline path (phase 5)
+# must launch
 PATH_KERNELS = {
     "text q8 + pre-encoded f32": ("fetch_f32", "fetch_q8", "segsum", "topm"),
     "pre-encoded bf16": ("fetch_bf16", "segsum", "topm"),
     "pre-encoded block-max": ("fetch_f32_blockmax", "segsum", "topm"),
+    "offline f32": ("fetch_f32", "segsum", "topm"),
+    "offline bf16": ("fetch_bf16", "segsum", "topm"),
+    "offline q8": ("fetch_q8", "segsum", "topm"),
+    "offline block-max": ("fetch_f32_blockmax", "segsum", "topm"),
+    "offline maxscore": ("fetch_f32", "segsum", "topm"),
 }
 
 
@@ -747,17 +768,31 @@ def profile_tile(label: str, fn, card_s: str) -> None:
 
 
 class StandInTokenizer:
-    """Texts of words "w<id>" → token id = id mod vocab, left-padded to the
-    smallest length rung that holds the batch (the stand-in for the
-    Llama-3 tokenizer, whose files are not in the repository)."""
+    """Texts of words "w<id>" → token id = id mod vocab, left-padded (the
+    stand-in for the Llama-3 tokenizer, whose files are not in the
+    repository). ``tok(texts, length=None)`` pads to ``length`` or to the
+    smallest length rung that holds the batch and returns (ids, mask), as
+    the text frontend calls it; with Hugging Face keywords
+    (``max_length``, ``padding``, ...) it answers that protocol instead,
+    as the data collators call it."""
 
     def __init__(self, vocab: int, lengths=(16, 64)):
         self.vocab = vocab
         self.lengths = tuple(lengths)
 
-    def __call__(self, texts, length=None):
+    def __call__(self, texts, length=None, *, truncation=False,
+                 max_length=None, padding=None, pad_to_multiple_of=None,
+                 return_attention_mask=True):
         toks = [[int(w[1:]) % self.vocab for w in t.split()] for t in texts]
-        if length is None:
+        hf = max_length is not None or padding is not None
+        if hf:
+            if truncation and max_length is not None:
+                toks = [t[:max_length] for t in toks]
+            length = (max_length if padding == "max_length"
+                      else max(len(t) for t in toks))
+            if pad_to_multiple_of:
+                length = -(-length // pad_to_multiple_of) * pad_to_multiple_of
+        elif length is None:
             need = max(len(t) for t in toks)
             length = next(r for r in self.lengths if r >= need)
         ids = np.zeros((len(texts), length), np.int32)
@@ -767,6 +802,8 @@ class StandInTokenizer:
             if t:
                 ids[i, length - len(t):] = t
                 mask[i, length - len(t):] = 1
+        if hf:
+            return {"input_ids": ids, "attention_mask": mask}
         return ids, mask
 
 
@@ -795,22 +832,13 @@ def check_served(backend, eng, reqs, res, label):
             tie_equal_topk(rows[i][fin], scores[i][fin], ids, sc, rtol=1e-5)
 
 
-def serving_phase(dev, eng_f32, eng_q8, eng_bf16, bmx, bmx_tiles, seed,
-                  card_s):
-    """Phase 4: text serving at Llama-3.2-1B width (q8 handoff) plus
-    pre-encoded serving (f32), then pre-encoded serving on the bf16 index
-    and on the block-max engine. Returns the launch counts of each path,
-    each read over exactly that path."""
+def make_model(dev, seed: int):
+    """The published Llama-3.2-1B architecture as LlamaBiSparse, random
+    bf16 weights from ``seed``."""
     from scaling_retriever_tpu_torch.models.config import (LLAMA_3_2_1B,
                                                            ModelConfig)
     from scaling_retriever_tpu_torch.models.encoder import LlamaBiSparse
     from scaling_retriever_tpu_torch.models.weights import random_params
-    from scaling_retriever_tpu_torch.ops import cuda_lib
-    from scaling_retriever_tpu_torch.serving.server import (
-        RetrievalServer, SparseTileBackend)
-    from scaling_retriever_tpu_torch.serving.text_frontend import (
-        QueryEncoderFrontend, make_encode_fn_handoff)
-    from scaling_retriever_tpu_torch.utils.utils import tie_equal_topk
 
     cfg = ModelConfig.from_hf_config(LLAMA_3_2_1B, dtype=torch.bfloat16,
                                      param_dtype=torch.bfloat16)
@@ -821,6 +849,21 @@ def serving_phase(dev, eng_f32, eng_q8, eng_bf16, bmx, bmx_tiles, seed,
     log(f"encoder: Llama-3.2-1B architecture, {n_params} params bf16, "
         f"random from seed {seed}, on card in "
         f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def serving_phase(dev, model, eng_f32, eng_q8, eng_bf16, bmx, bmx_tiles,
+                  seed, card_s):
+    """Phase 4: text serving at Llama-3.2-1B width (q8 handoff) plus
+    pre-encoded serving (f32), then pre-encoded serving on the bf16 index
+    and on the block-max engine. Returns the launch counts of each path,
+    each read over exactly that path."""
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+    from scaling_retriever_tpu_torch.serving.server import (
+        RetrievalServer, SparseTileBackend)
+    from scaling_retriever_tpu_torch.serving.text_frontend import (
+        QueryEncoderFrontend, make_encode_fn_handoff)
+    from scaling_retriever_tpu_torch.utils.utils import tie_equal_topk
 
     rng = np.random.default_rng(seed)
     short = [" ".join(f"w{x}" for x in rng.integers(0, VOCAB,
@@ -980,6 +1023,539 @@ def serving_phase(dev, eng_f32, eng_q8, eng_bf16, bmx, bmx_tiles, seed,
     return paths
 
 
+# ---- phase 5: the offline evaluation path
+
+DEV_QUERIES = 6_980           # MSMARCO Dev's query count
+CHECK_Q = 4 * TILE            # the stream's first 4 tiles, checked in full
+RUN_Q = 1_024                 # the stream's last queries, written to run.json
+N_TEXTS = 64
+CLI_CUT = 32                  # the CLI's index keeps docs < N_DOCS // CLI_CUT
+BMX_Q = 8 * TILE
+MAXSCORE_Q = 1_024
+
+
+def dev_stream(rng):
+    """DEV_QUERIES pre-encoded queries of L0_Q random terms, weights k/64
+    (k in 8..128) descending, padded to T_BUDGET. Dyadic weights over the
+    all-1.0 index make every f32 and bf16 score exact in any summation
+    order, so paths agree bit for bit (q8 folds 1/255 scales: to
+    rounding)."""
+    qt = np.zeros((DEV_QUERIES, T_BUDGET), np.int32)
+    qv = np.zeros((DEV_QUERIES, T_BUDGET), np.float32)
+    qt[:, :L0_Q] = rng.integers(0, VOCAB, (DEV_QUERIES, L0_Q))
+    qv[:, :L0_Q] = -np.sort(-rng.integers(8, 129, (DEV_QUERIES, L0_Q)),
+                            axis=1) / 64.0
+    return qt, qv, [f"q{i}" for i in range(DEV_QUERIES)]
+
+
+def sparse_batches(qt, qv, ids, bz: int = 128) -> list:
+    return [{"q_terms": qt[s:s + bz], "q_vals": qv[s:s + bz],
+             "ids": ids[s:s + bz]} for s in range(0, len(ids), bz)]
+
+
+def host_index(rows, bits, offsets, n_docs: int, nnz: int, prefix: str):
+    """A host SparseIndex of a corpus generated on the card (one device to
+    host copy), doc ids prefix + row."""
+    from scaling_retriever_tpu_torch.index.inverted_index import SparseIndex
+
+    t0 = time.perf_counter()
+    idx = SparseIndex(np.asarray(offsets, np.int64), rows[:nnz].cpu().numpy(),
+                      bits[:nnz].view(torch.float32).cpu().numpy(),
+                      [f"{prefix}{i}" for i in range(n_docs)],
+                      len(offsets) - 1)
+    log(f"host SparseIndex: {idx.nnz} postings, {idx.nb_docs()} docs, "
+        f"copied from the card in {time.perf_counter() - t0:.1f} s")
+    return idx
+
+
+def ranked(docs: dict) -> list:
+    """A run entry as (doc, score) pairs in the trec_eval order."""
+    return sorted(docs.items(), key=lambda kv: (kv[1], kv[0]), reverse=True)
+
+
+def same_run(got: dict, want: dict, qids, rtol: float, label: str) -> None:
+    """Per query: tie-equal top-k lists (tie_equal_topk at ``rtol``)."""
+    from scaling_retriever_tpu_torch.utils.utils import tie_equal_topk
+
+    for q in qids:
+        check(q in got and q in want, f"{label}: query {q} missing")
+        g, w = ranked(got[q]), ranked(want[q])
+        tie_equal_topk([d for d, _ in w], [s for _, s in w],
+                       [d for d, _ in g], [s for _, s in g], rtol=rtol)
+
+
+def cross_check_runs(got: dict, want: dict, qids, label: str) -> float:
+    """bench_bmx.py's cross_check over two runs' lists of the same
+    queries; returns the share of identical doc ids."""
+    for q in qids:
+        check(len(got[q]) == len(want[q]), f"{label}: {q} lengths differ")
+    g = [ranked(got[q]) for q in qids]
+    w = [ranked(want[q]) for q in qids]
+    return cross_check(np.array([[s for _, s in r] for r in g]),
+                       np.array([[d for d, _ in r] for r in g]),
+                       np.array([[s for _, s in r] for r in w]),
+                       np.array([[d for d, _ in r] for r in w]))
+
+
+def engine_run(eng, qt, qv, ids, doc_ids, n_docs) -> dict:
+    """The engine's TILE-wide tiles over the queries (depth-2 pipeline) as a
+    run dict, thresholded at 0 as the driver does."""
+    from scaling_retriever_tpu_torch.utils.run_accum import RunAccumulator
+    from scaling_retriever_tpu_torch.utils.utils import depth2_pipeline
+
+    acc = RunAccumulator(ids, doc_ids, n_docs, threshold=0.0)
+
+    def dispatch(s):
+        return s, eng.retrieve_tile_async(
+            None, TOPK, sparsified=(qt[s:s + TILE], qv[s:s + TILE]))
+
+    def drain(p):
+        s, payload = p
+        scores, rows = eng.finalize(payload)
+        acc.add_tile(np.arange(s, s + len(scores)), rows, scores)
+
+    depth2_pipeline(range(0, len(ids), TILE), dispatch, drain)
+    return acc.to_run()
+
+
+def log_stats(label: str, st: dict, card_s: str) -> None:
+    spans = {k: (v["count"], v["total_s"], v["max_s"])
+             for k, v in st["spans"].items()}
+    log(f"offline {label}: setup_s {st['setup_s']}, encode_s "
+        f"{st['encode_s']}, retrieval_s {st['retrieval_s']}, retrieval_qps "
+        f"{st['retrieval_qps']}, steady_qps {st.get('steady_qps')}, warmup "
+        f"{st.get('warmup_tiles')} tiles / {st.get('warmup_s')} s, hot "
+        f"{st.get('hot_queries')}, L0_q {st['L0_q']}; spans (count, total_s,"
+        f" max_s) {spans}; card {card_s}")
+
+
+def free() -> None:
+    """Return the card memory of objects the caller has deleted."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def topm_at_prefix(seg, qt, qv, k: int, card_s: str) -> None:
+    """B1, B4 and B5 at the shapes maxscore's prefix engine gives them (a
+    top-C over its slab), each against its plain version on the same
+    inputs; B5 also timed."""
+    from scaling_retriever_tpu_torch.ops import fetch, segsum, topm
+    from scaling_retriever_tpu_torch.ops.segsort_scoring import bucket_jobs
+
+    dev = seg.device
+    jobs = bucket_jobs(int(seg.job_need(qt, qv).max()))
+    qtd, order = torch.sort(torch.from_numpy(qt).to(dev), dim=1, stable=True)
+    qvd = torch.from_numpy(qv).to(dev).gather(1, order)
+    args = (seg.rows_flat, seg.valbits_flat, qtd, seg.offsets, qvd, jobs,
+            seg.n_docs)
+    rows, contrib, _ = fetch.fetch_postings_dma(*args)
+    prow, pcon, _ = fetch.fetch_postings_dma(*args,
+                                             fetch=fetch.fetch_jobs_plain)
+    check(torch.equal(rows, prow) and torch.equal(contrib, pcon),
+          f"B1 != plain at maxscore's prefix slab ({jobs} jobs per query)")
+    del prow, pcon
+    srow, perm = torch.sort(rows, dim=1)
+    sc = contrib.gather(1, perm)
+    score = segsum.segsum_mask(srow, sc, seg.n_docs, qt.shape[1])
+    ref = segsum.segsum_mask_plain(srow, sc, seg.n_docs, qt.shape[1])
+    fin = torch.isfinite(ref)
+    check(torch.equal(fin, torch.isfinite(score)) and bool(fin.any()),
+          "B4 run-end mask differs at maxscore's prefix slab")
+    rel = float(((score[fin] - ref[fin]).abs()
+                 / ref[fin].abs().clamp_min(1e-30)).max())
+    check(rel <= 1e-6, f"B4 relative error {rel} at maxscore's prefix slab")
+    nq, P = score.shape
+    block = 4096
+    B = P // block
+    m = max(32, -(-k // B))
+    check(B >= 4 and m <= 128, f"prefix slab [{nq}, {P}] takes no B5 "
+          f"(m {m})")
+    v, i = topm.block_topm(score, m, block)
+    pv, pi = topm.block_topm_plain(score, m, block)
+    check(torch.equal(v, pv) and torch.equal(i, pi),
+          f"B5 != plain at maxscore's m {m}")
+    b_ms, b_by = bound(nq * P * 4 + nq * B * m * 8, nq * P)
+    log(f"maxscore's prefix slab [{nq}, {P}] ({jobs} jobs per query): B1 == "
+        f"plain, B4 == plain (max relative error {rel:.2e}); B5 at block "
+        f"{block}, m {m} (k = C = {k}): "
+        f"{time_ms(lambda: topm.block_topm(score, m, block), 20):.4f}"
+        f" ms, plain {time_ms(lambda: topm.block_topm_plain(score, m, block), 3, 1):.4f}"
+        f" ms, torch.topk "
+        f"{time_ms(lambda: torch.topk(score.view(nq, B, block), m), 20):.4f} ms,"
+        f" bound {b_ms:.4f} ms ({b_by}); == plain; card {card_s}")
+
+
+def gather_scan(terms, vals, q_t, k: int, block: int,
+                step_bytes: int = 1 << 30):
+    """The doc-major scan in its earlier formulation, timed beside the CSR
+    product (ops/sparse_scoring.py) and nowhere used: per step of whole
+    blocks, a [rows, K, nq] row gather of Q^T, a batched [1, K] x [K, nq]
+    product per doc, and the top-k merge."""
+    n, kk = terms.shape
+    nq = q_t.shape[1]
+    step = min(n, max(block, (step_bytes // (kk * nq * 4)) // block * block))
+    top_s = torch.full((nq, k), float("-inf"), device=q_t.device)
+    top_i = torch.full((nq, k), -1, dtype=torch.int64, device=q_t.device)
+    for s0 in range(0, n, step):
+        tb, vb = terms[s0:s0 + step], vals[s0:s0 + step]
+        g = q_t.index_select(0, tb.reshape(-1).long()).view(tb.shape[0], kk,
+                                                            nq)
+        s = torch.bmm(vb.float().unsqueeze(1), g).squeeze(1).T
+        rows = torch.arange(s0, s0 + s.shape[1],
+                            device=q_t.device).expand(nq, -1)
+        top_s, sel = torch.topk(torch.cat([top_s, s], 1), k, dim=1)
+        top_i = torch.cat([top_i, rows], 1).gather(1, sel)
+    return top_s, top_i
+
+
+def term_major_topk(seg, q_t, k: int, chunk: int = 1 << 23):
+    """Top-k of Q @ index from the term-major postings that ``seg`` (an f32
+    SegsortEngine) holds on the card, by ``index_add_`` over chunks of
+    postings: plain PyTorch, independent of the doc-major arrays and of
+    the kernels."""
+    nnz = int(seg._host_offsets[-1])
+    vals = seg.valbits_flat[:nnz].view(torch.float32)
+    scores = torch.zeros((seg.n_docs, q_t.shape[1]), device=q_t.device)
+    for s0 in range(0, nnz, chunk):
+        e = min(s0 + chunk, nnz)
+        pos = torch.arange(s0, e, device=q_t.device)
+        term = torch.searchsorted(seg.offsets, pos, right=True) - 1
+        scores.index_add_(0, seg.rows_flat[s0:e].long(),
+                          q_t[term] * vals[s0:e, None])
+    return torch.topk(scores.T, k, dim=1)
+
+
+def as_run(ids, rows, scores, doc_ids, n_docs) -> dict:
+    """Device (rows, scores) [nq, k] as a run dict, thresholded at 0."""
+    from scaling_retriever_tpu_torch.utils.run_accum import RunAccumulator
+
+    acc = RunAccumulator(ids, doc_ids, n_docs)
+    acc.add_tile(np.arange(len(ids)), rows.cpu().numpy(),
+                 scores.cpu().numpy())
+    return acc.to_run()
+
+
+def offline_phase(dev, model, index, cindex, cfg, seed, card_s) -> dict:
+    """Phase 5: eval_sparse's path (SparseRetrieval over a query stream,
+    run.json, evaluate_msmarco) at MSMARCO scale. Returns the launch counts
+    of each offline path, each read over exactly that path."""
+    import tempfile
+
+    from scaling_retriever_tpu_torch.data.collators import \
+        LlamaSparseCollectionCollator
+    from scaling_retriever_tpu_torch.data.loader import DataLoader
+    from scaling_retriever_tpu_torch.evaluation import eval_sparse, metrics
+    from scaling_retriever_tpu_torch.index.inverted_index import SparseIndex
+    from scaling_retriever_tpu_torch.index.sparse_retrieval import \
+        SparseRetrieval
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+    from scaling_retriever_tpu_torch.ops import segsort_scoring as ss
+    from scaling_retriever_tpu_torch.ops.sparse_scoring import \
+        retrieve_doc_major
+    from scaling_retriever_tpu_torch.utils.profiling import reset_timings
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def lap(step: str) -> None:
+        log(f"phase 5 at {time.perf_counter() - t_phase:.1f} s: {step}")
+    peaks = []
+
+    def added_gb(fn):
+        """fn()'s result and the card memory it added at its peak (GB);
+        the phase's peak so far is kept in ``peaks``."""
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        return out, (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    paths = {}
+    rng = np.random.default_rng(seed + 1)
+    qt, qv, ids = dev_stream(rng)
+    chk = slice(0, CHECK_Q)
+    fin = slice(DEV_QUERIES - RUN_Q, DEV_QUERIES)
+    per_term = int(index.offsets[1] - index.offsets[0])
+
+    def retrieve(ret, batches, **kw):
+        reset_timings()
+        return ret.retrieve(batches, **kw)
+
+    tmp_ctx = tempfile.TemporaryDirectory()
+    tmp = tmp_ctx.name
+    # ---- 1. the Dev-size stream on the f32 layout ----
+    ret = SparseRetrieval(model, index, topk=TOPK, engine="auto",
+                          query_tile=TILE, device=dev)
+    check(ret.engine == "segsort" and ret._seg.fetch == "dma",
+          f"resolve_engine picked {ret.engine} on the card")
+    cuda_lib.reset_launches()
+    _, st = retrieve(ret, sparse_batches(qt, qv, ids), return_run=False,
+                     write_run=False)
+    paths["offline f32"] = dict(cuda_lib.LAUNCHES)
+    log_stats(f"f32, {DEV_QUERIES} queries (engine {ret.engine})", st, card_s)
+    run_f32, _ = retrieve(ret, sparse_batches(qt[chk], qv[chk], ids[chk]))
+    plain = ss.SegsortEngine(topk=TOPK, ops=ss.PLAIN, device_csr=(
+        ret._seg.rows_flat, ret._seg.valbits_flat, index.offsets, N_DOCS))
+    run_plain = engine_run(plain, qt[chk], qv[chk], ids[chk], index.doc_ids,
+                           N_DOCS)
+    same_run(run_f32, run_plain, ids[chk], 1e-5, "f32 vs plain")
+    check(all(len(run_f32[q]) == TOPK for q in ids[chk]), "short top-1000")
+    ret.out_dir = os.path.join(tmp, "run_f32")
+    t0 = time.perf_counter()
+    run_fin, st_fin = retrieve(ret, sparse_batches(qt[fin], qv[fin], ids[fin]))
+    wall = time.perf_counter() - t0
+    ret.out_dir = None
+    log_stats(f"f32, the last {RUN_Q} queries with run.json", st_fin, card_s)
+    log(f"offline f32 run.json of {RUN_Q} queries: retrieve() wall "
+        f"{wall:.3f} s = encode {st_fin['encode_s']} s + retrieval "
+        f"{st_fin['retrieval_s']} s + run build and dump "
+        f"{wall - st_fin['encode_s'] - st_fin['retrieval_s']:.3f} s")
+    run_plain_fin = engine_run(plain, qt[fin], qv[fin], ids[fin],
+                               index.doc_ids, N_DOCS)
+    same_run(run_fin, run_plain_fin, ids[fin], 1e-5, "f32 run.json vs plain")
+    log(f"offline f32 == plain-ops engine on the first {CHECK_Q} and the "
+        f"last {RUN_Q} queries (tie-equal, rtol 1e-5)")
+
+    # ---- 2. text in, through the hot route ----
+    lap("text in, through the hot route")
+    tok = StandInTokenizer(VOCAB)
+    texts = [(f"t{i}", " ".join(f"w{x}" for x in rng.integers(
+        0, VOCAB, int(rng.integers(5, 65))))) for i in range(N_TEXTS)]
+    loader = DataLoader(texts, TILE, LlamaSparseCollectionCollator(tok, 64))
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    (run_text, st_text), hot_gb = added_gb(lambda: retrieve(ret, loader))
+    log_stats(f"text ({N_TEXTS} texts, Llama-3.2-1B width)", st_text, card_s)
+    check(st_text["hot_queries"] == N_TEXTS,
+          f"text queries not hot: {st_text['hot_queries']}")
+    batch = next(iter(loader))
+    q_t = model.encode(batch["input_ids"], batch["attention_mask"]).T
+    q_t = q_t.float().contiguous()
+    terms_d, vals_d = ret._hot_terms, ret._hot_vals
+    (s, r), dm_gb = added_gb(lambda: retrieve_doc_major(
+        terms_d, vals_d, q_t, k=TOPK, block=ret.block))
+    text_ids = batch["ids"]
+    same_run(run_text, as_run(text_ids, r, s, index.doc_ids, N_DOCS),
+             text_ids, 1e-6, "text vs retrieve_doc_major")
+    # an independent scorer: the term-major postings, index_add_ in chunks
+    (ts, tr), tm_gb = added_gb(lambda: term_major_topk(ret._seg, q_t, TOPK))
+    same_run(run_text, as_run(text_ids, tr, ts, index.doc_ids, N_DOCS),
+             text_ids, 1e-5, "text vs the term-major scorer")
+    del ts, tr
+    log(f"doc-major arrays {tuple(terms_d.shape)} int32 + {vals_d.dtype}; "
+        f"text run == retrieve_doc_major on the same reps (tie-equal, rtol "
+        f"1e-6) and == a term-major index_add_ scorer over the f32 "
+        f"engine's postings (tie-equal, rtol 1e-5)")
+    # the scan alone: each doc-major entry read once, a multiply-add per
+    # (entry, query), the top-k written once; beside it the earlier
+    # formulation (a [rows, K, nq] gather per step), on the same inputs
+    n_pad, kk = terms_d.shape
+    dm_ms = time_ms(lambda: retrieve_doc_major(
+        terms_d, vals_d, q_t, k=TOPK, block=ret.block), 3, 1)
+    (gs, gr), g_gb = added_gb(lambda: gather_scan(terms_d, vals_d, q_t,
+                                                  TOPK, ret.block))
+    same_run(as_run(text_ids, gr, gs, index.doc_ids, N_DOCS), run_text,
+             text_ids, 1e-5, "the earlier scan vs the CSR scan")
+    del gs, gr
+    g_ms = time_ms(lambda: gather_scan(terms_d, vals_d, q_t, TOPK,
+                                       ret.block), 1, 0)
+    b_ms, b_by = bound(n_pad * kk * (4 + vals_d.element_size())
+                       + q_t.numel() * 4 + N_TEXTS * TOPK * 12,
+                       2 * n_pad * kk * N_TEXTS)
+    log(f"doc-major scan, {N_TEXTS} queries over [{n_pad}, {kk}]: CSR "
+        f"product {dm_ms:.1f} ms, the earlier [rows, K, nq] gather "
+        f"{g_ms:.1f} ms (== the CSR scan, tie-equal, rtol 1e-5), bound "
+        f"{b_ms:.2f} ms ({b_by}); card {card_s}")
+    log(f"card memory added at each step's peak over the {held_gb:.2f} GB "
+        f"held before the text run: the text run with the doc-major build "
+        f"{hot_gb:.2f} GB; then, over what is held with the arrays, the "
+        f"CSR scan {dm_gb:.2f} GB, "
+        f"the term-major check {tm_gb:.2f} GB, the earlier gather scan "
+        f"{g_gb:.2f} GB")
+    ret.hot_postings = L0_Q * per_term - 1        # every stream query is hot
+    run_hot, st_hot = retrieve(ret, sparse_batches(qt[chk], qv[chk],
+                                                   ids[chk]))
+    ret.hot_postings = 8 * 1024 * 1024
+    check(st_hot["hot_queries"] == CHECK_Q, f"hot: {st_hot['hot_queries']}")
+    same_run(run_hot, run_f32, ids[chk], 1e-6, "hot route vs segsort")
+    log_stats(f"hot route, {CHECK_Q} stream queries", st_hot, card_s)
+    ret._hot_terms = ret._hot_vals = terms_d = vals_d = None
+    free()
+    xla = SparseRetrieval(model, index, topk=TOPK, engine="xla",
+                          query_tile=TILE, device=dev)
+    run_xla, st_xla = retrieve(xla, loader)
+    same_run(run_text, run_xla, batch["ids"], 1e-6, "text vs xla")
+    log_stats("xla engine, the same texts", st_xla, card_s)
+    del xla
+    free()
+
+    # ---- 3. the gather fetch on a few tiles ----
+    lap("the gather fetch")
+    g = ss.SegsortEngine(index, topk=TOPK, fetch="gather", device=dev)
+    t0 = time.perf_counter()
+    run_g = engine_run(g, qt[:2 * TILE], qv[:2 * TILE], ids[:2 * TILE],
+                       index.doc_ids, N_DOCS)
+    g_ms = (time.perf_counter() - t0) * 1e3 / 2
+    same_run(run_g, run_f32, ids[:2 * TILE], 1e-6, "gather vs dma")
+    log(f"fetch='gather': == the DMA engine on 2 tiles (tie-equal, rtol "
+        f"1e-6); {g_ms:.1f} ms per tile incl. the run build; card {card_s}")
+    del g, plain, ret
+    free()
+
+    # ---- 1 (cont.). the bf16 and q8 layouts ----
+    lap("the bf16 and q8 layouts")
+    for vd, rtol in (("bf16", 1e-6), ("q8", 2e-5)):
+        r2 = SparseRetrieval(None, index, topk=TOPK, engine="auto",
+                             query_tile=TILE, index_val_dtype=vd, device=dev)
+        cuda_lib.reset_launches()
+        _, st = retrieve(r2, sparse_batches(qt, qv, ids), return_run=False,
+                         write_run=False)
+        paths[f"offline {vd}"] = dict(cuda_lib.LAUNCHES)
+        log_stats(f"{vd}, {DEV_QUERIES} queries", st, card_s)
+        run_v, _ = retrieve(r2, sparse_batches(qt[chk], qv[chk], ids[chk]))
+        same_run(run_v, run_f32, ids[chk], rtol, f"{vd} vs f32")
+        log(f"offline {vd} == f32 on the first {CHECK_Q} queries "
+            f"(tie-equal, rtol {rtol})")
+        del r2
+        free()
+
+    # ---- 4-5. block-max and maxscore on the clustered corpus ----
+    lap("block-max and maxscore")
+    tiles = make_tiles(cfg, np.random.default_rng(seed + 2),
+                       MAXSCORE_Q // TILE)
+    cqt = np.concatenate([t[0] for t in tiles])
+    cqv = np.concatenate([t[1] for t in tiles])
+    cids = [f"c{i}" for i in range(len(cqt))]
+    seg = SparseRetrieval(None, cindex, topk=TOPK, engine="segsort",
+                          query_tile=TILE, device=dev)
+    run_seg, st = retrieve(seg, sparse_batches(cqt, cqv, cids))
+    log_stats(f"segsort, clustered, {len(cids)} queries", st, card_s)
+    del seg
+    free()
+    bmx = SparseRetrieval(None, cindex, topk=TOPK, engine="bmx",
+                          query_tile=TILE, device=dev)
+    cuda_lib.reset_launches()
+    run_bmx, st = retrieve(bmx, sparse_batches(cqt[:BMX_Q], cqv[:BMX_Q],
+                                               cids[:BMX_Q]))
+    paths["offline block-max"] = dict(cuda_lib.LAUNCHES)
+    bst = bmx._seg.stats()
+    check(bst["pruned_tiles"] > 0, f"block-max pruned no tile: {bst}")
+    same = cross_check_runs(run_bmx, run_seg, cids[:BMX_Q], "bmx")
+    log_stats(f"block-max, clustered, {BMX_Q} queries (staged pipeline)", st,
+              card_s)
+    log(f"offline block-max == segsort within cross_check 2e-4 ({same:.4f} "
+        f"of ids identical); engine stats {bst}")
+    del bmx
+    free()
+    t0 = time.perf_counter()
+    ms = SparseRetrieval(None, cindex, topk=TOPK, engine="maxscore",
+                         query_tile=TILE, device=dev)
+    log(f"maxscore engine built in {time.perf_counter() - t0:.1f} s (impact "
+        f"prefix {int(ms._seg._seg._host_offsets[-1])} postings, doc-major "
+        f"{tuple(ms._seg.doc_terms.shape)}); full depth, no cut")
+    cuda_lib.reset_launches()
+    run_ms, st = retrieve(ms, sparse_batches(cqt, cqv, cids))
+    paths["offline maxscore"] = dict(cuda_lib.LAUNCHES)
+    eng = ms._seg
+    same = cross_check_runs(run_ms, run_seg, cids, "maxscore")
+    log_stats(f"maxscore, clustered, {len(cids)} queries", st, card_s)
+    log(f"offline maxscore == segsort within cross_check 2e-4 ({same:.4f} "
+        f"of ids identical); fallback tiles {eng.fallbacks} of {eng.tiles} "
+        f"pruned tiles ({eng.fallbacks / max(eng.tiles, 1):.4f})")
+    qt0, qv0 = eng.sparsify_queries(ms._densify((cqt[:TILE], cqv[:TILE])))
+    topm_at_prefix(eng._seg, qt0, qv0, eng.C, card_s)
+    del ms, eng
+    free()
+
+    # ---- 6. the CLI ----
+    lap("the CLI")
+    cut_n = N_DOCS // CLI_CUT
+    keep = index.doc_rows < cut_n
+    counts = keep.reshape(VOCAB, per_term).sum(axis=1)
+    off = np.zeros(VOCAB + 1, np.int64)
+    np.cumsum(counts, out=off[1:])
+    cut = SparseIndex(off, index.doc_rows[keep], index.values[keep],
+                      index.doc_ids[:cut_n], VOCAB)
+    cut_dir = os.path.join(tmp, "index_cut")
+    cut.save(cut_dir)
+    log(f"CLI index: the uniform index cut to docs < {cut_n} (1/{CLI_CUT} "
+        f"of the depth): {cut.nnz} postings, saved to a temporary dir")
+    del keep, cut
+    reps_path = os.path.join(tmp, "query_reps.npz")
+    np.savez(reps_path, ids=np.asarray(ids[fin], dtype=object),
+             q_terms=qt[fin], q_vals=qv[fin])
+    outs = {}
+    for name, extra in (("one pass", []), ("two passes", ["--passes", "2"])):
+        outs[name] = os.path.join(tmp, name.replace(" ", "_"))
+        t0 = time.perf_counter()
+        eval_sparse.main(["--task_name", "retrieval", "--query_reps_path",
+                          reps_path, "--index_dir", cut_dir, "--out_dir",
+                          outs[name], "--top_k", str(TOPK), "--query_tile",
+                          str(TILE), "--device", str(dev)] + extra)
+        with open(os.path.join(outs[name], "q_stats.json")) as f:
+            qs = json.load(f)
+        log(f"CLI retrieval, {name}: {time.perf_counter() - t0:.1f} s; "
+            f"q_stats {({k: qs[k] for k in ('setup_s', 'retrieval_qps', 'steady_qps', 'warmup_tiles')})}"
+            f"{'; passes ' + str(qs['passes']) if 'passes' in qs else ''}")
+    runs = []
+    for name in outs:
+        with open(os.path.join(outs[name], "run.json")) as f:
+            runs.append(json.load(f))
+    check(len(runs[0]) == RUN_Q, f"CLI run has {len(runs[0])} queries")
+    same_run(runs[1], runs[0], ids[fin], 1e-6, "CLI two passes vs one")
+    check(qs["passes"][1]["warmup_tiles"] == 0, "pass 2 ran warmup tiles")
+    # maxscore where its certificate holds: every list of the cut is inside
+    # the prefix, so the bound is 0 and each tile's result is the prefix
+    # engine's top-C rescored exactly (rescore_candidates), held against
+    # the CLI's segsort run of the same queries
+    ms = SparseRetrieval(None, cut_dir, topk=TOPK, engine="maxscore",
+                         query_tile=TILE, device=dev)
+    eng = ms._seg
+    check(not eng.u_arr.any(), "a list of the cut is longer than the prefix")
+    run_msc, st = retrieve(ms, sparse_batches(qt[fin], qv[fin], ids[fin]))
+    check(eng.fallbacks == 0 and eng.tiles == RUN_Q // TILE,
+          f"certified maxscore: {eng.fallbacks} fallbacks of {eng.tiles}")
+    same_run(run_msc, runs[0], ids[fin], 1e-6, "certified maxscore vs CLI")
+    log_stats(f"maxscore on the cut, {RUN_Q} queries (longest list "
+              f"{int(np.diff(ms.index.offsets).max())} postings)", st, card_s)
+    log(f"certified maxscore == the CLI's segsort run (tie-equal, rtol "
+        f"1e-6); fallback tiles 0 of {eng.tiles}")
+    del ms, eng
+    free()
+    # evaluate_msmarco on step 1's full-scale run.json: one relevant doc per
+    # query, strictly above the query's 10th score, so ties cannot move it
+    run_path = os.path.join(tmp, "run_f32", "run.json")
+    qrel = {}
+    for q in ids[fin]:
+        top = ranked(run_fin[q])[:10]
+        above = [d for d, s_ in top if s_ > top[-1][1]]
+        if above:
+            qrel[q] = {above[int(rng.integers(len(above)))]: 1}
+    qrel_path = os.path.join(tmp, "qrel.json")
+    with open(qrel_path, "w") as f:
+        json.dump(qrel, f)
+    eval_sparse.main(["--task_name", "evaluate_msmarco", "--eval_qrel_path",
+                      qrel_path, "--eval_run_path", run_path,
+                      "--eval_metric", "['mrr_10','recall']", "--out_dir",
+                      os.path.join(tmp, "perf")])
+    with open(os.path.join(tmp, "perf", "perf.json")) as f:
+        perf = json.load(f)
+    want = {"mrr_10": {"mrr_10": metrics.mrr_k(run_plain_fin, qrel, 10)},
+            "recall": metrics.evaluate(run_plain_fin, qrel, "recall")}
+    check(perf == want, f"perf.json {perf} != the plain-path metrics {want}")
+    log(f"evaluate_msmarco on the {RUN_Q}-query run.json ({len(qrel)} "
+        f"queries with a qrel): MRR@10 {perf['mrr_10']['mrr_10']:.6f}, "
+        f"recall_10 {perf['recall']['recall_10']:.6f}, recall_1000 "
+        f"{perf['recall']['recall_1000']:.6f}; == the metrics of the "
+        f"plain-path run")
+    tmp_ctx.cleanup()
+    log(f"phase 5 (offline path): {time.perf_counter() - t_phase:.1f} s, "
+        f"peak card memory "
+        f"{max(peaks + [torch.cuda.max_memory_allocated(dev)]) / 1e9:.2f} "
+        f"GB allocated; card {card_s}")
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1008,7 +1584,7 @@ def main(argv=None) -> int:
 
 
 def run(dev, seed: int, card_s: str) -> list:
-    """Phases 2-4 on ``dev``; returns the per-kernel report entries."""
+    """Phases 2-5 on ``dev``; returns the per-kernel report entries."""
     from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
 
     t0 = time.perf_counter()
@@ -1045,8 +1621,23 @@ def run(dev, seed: int, card_s: str) -> list:
     bmx = clustered_phase(dev, cfg, csr, meta, base, bmx_tiles[:12], card_s)
     log("phase 3: engine kernel paths match the plain paths; block-max "
         "matches the unpruned engine")
-    paths = serving_phase(dev, eng_f32, eng_q8, eng_bf16, bmx,
+    model = make_model(dev, seed)
+    paths = serving_phase(dev, model, eng_f32, eng_q8, eng_bf16, bmx,
                           bmx_tiles[12:], seed, card_s)
+    log("phase 4: served text and pre-encoded requests (f32, bf16, q8, "
+        "block-max) through the kernels")
+    # phase 5 starts from host copies of both corpora; the card keeps
+    # neither the generated arrays nor the engines over them
+    index = host_index(rows, valbits, offsets, N_DOCS, nnz, "d")
+    cindex = host_index(csr[0], csr[1], cfg["offsets"], cfg["N"],
+                        cfg["NNZ"], "c")
+    del eng_f32, eng_q8, eng_bf16, bmx, base, csr, meta
+    del rows, valbits, pairs, packed
+    free()
+    offline = offline_phase(dev, model, index, cindex, cfg, seed, card_s)
+    for path, counts in offline.items():
+        log(f"launches over the {path} path: {counts}")
+    paths.update(offline)
     for path, kernels in PATH_KERNELS.items():
         missing = [k_ for k_ in kernels if paths[path][k_] == 0]
         check(not missing, f"{missing} not launched on the {path} path: "
@@ -1055,8 +1646,8 @@ def run(dev, seed: int, card_s: str) -> list:
         r["launches"] = sum(p_[r["name"]] for p_ in paths.values())
     check(all(r["launches"] > 0 for r in report),
           f"a kernel was not launched on the main paths: {paths}")
-    log("phase 4: served text and pre-encoded requests (f32, bf16, q8, "
-        "block-max) through the kernels")
+    log("phase 5: the offline path (f32, bf16, q8, text via the hot route, "
+        "gather, block-max, maxscore, the CLI) through the kernels")
     return report
 
 

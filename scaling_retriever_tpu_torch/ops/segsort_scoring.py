@@ -96,6 +96,49 @@ def sparsify_reps(q_dense: np.ndarray, T: int = 64
     return idx.astype(np.int32), vals
 
 
+def pack_postings(offsets: np.ndarray, doc_rows: np.ndarray,
+                  values: np.ndarray) -> np.ndarray:
+    """CSR postings → the gather path's packed int32 matrix [nnz, 2]:
+    column 0 the doc row, column 1 the f32 value bits."""
+    nnz = doc_rows.shape[0]
+    packed = np.zeros((nnz, 2), np.int32)
+    packed[:, 0] = doc_rows.astype(np.int32)
+    packed[:, 1] = values.astype(np.float32).view(np.int32)
+    return packed
+
+
+def _q8_scales(offsets: np.ndarray, values: np.ndarray) -> np.ndarray:
+    """Per-term q8 dequant scale, max_val / 255 (1.0 for empty terms)."""
+    lens = np.diff(offsets).astype(np.int64)
+    vmax = np.ones(len(lens), np.float32)
+    nz = lens > 0
+    if nz.any():
+        vmax[nz] = np.maximum.reduceat(values, offsets[:-1][nz])
+    return np.where(nz & (vmax > 0), vmax / 255.0, 1.0).astype(np.float32)
+
+
+def sparsify_reps_device(q_dense: torch.Tensor, T: int = 64
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """``sparsify_reps`` of a [nq, V] tensor, computed where it lives (a
+    stable descending sort per row) and read back as the same numpy
+    (terms, vals) [nq, T'] arrays: values descending, ties in term order,
+    T' widened to the max row nnz (multiple of 8) beyond T."""
+    nq, V = q_dense.shape
+    pos = q_dense > 0
+    mx = int(pos.sum(dim=1).max()) if nq else 0
+    if mx > T:
+        T = -(-mx // 8) * 8
+    w = torch.where(pos, q_dense.float(), 0.0)
+    vals, idx = torch.sort(w, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :T], idx[:, :T]
+    idx = torch.where(vals > 0, idx, 0)
+    if T > V:
+        vals = torch.nn.functional.pad(vals, (0, T - V))
+        idx = torch.nn.functional.pad(idx, (0, T - V))
+    return (idx.to(torch.int32).cpu().numpy(),
+            vals.cpu().numpy().astype(np.float32, copy=False))
+
+
 def pack_postings_q8(offsets: np.ndarray, doc_rows: np.ndarray,
                      values: np.ndarray, n_docs: int, pad_to: int
                      ) -> tuple[np.ndarray, np.ndarray]:
@@ -112,11 +155,7 @@ def pack_postings_q8(offsets: np.ndarray, doc_rows: np.ndarray,
     rows = np.asarray(doc_rows, np.uint32)
     vals = np.asarray(values, np.float32)
     lens = np.diff(offsets).astype(np.int64)
-    vmax = np.ones(len(lens), np.float32)
-    nz = lens > 0
-    if nz.any():
-        vmax[nz] = np.maximum.reduceat(vals, offsets[:-1][nz])
-    scales = np.where(nz & (vmax > 0), vmax / 255.0, 1.0).astype(np.float32)
+    scales = _q8_scales(offsets, vals)
     per_post = np.repeat(scales, lens)
     codes = np.clip(np.rint(vals / per_post), 1, 255).astype(np.uint32)
     n = max(int(pad_to), len(rows))
@@ -139,6 +178,66 @@ def pack_values_bf16(values: np.ndarray, pad_to: int) -> np.ndarray:
     v16[:len(values)] = torch.from_numpy(values).to(torch.bfloat16).view(
         torch.int16).numpy().view(np.uint16)
     return v16.view(np.int32)
+
+
+def _segmented_sum_scan(vals: torch.Tensor,
+                        starts: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented sum of a 1-D array, restarting where ``starts``
+    is true: the reference's associative scan of (value, flag) pairs, as
+    Hillis-Steele doubling passes over the same operator. Kept as the
+    reference's API (its tests hold it there); the engines sum through
+    ``ops/segsum.py``."""
+    v = vals
+    f = starts.to(vals.dtype)
+    n = v.shape[0]
+    shift = 1
+    while shift < n:
+        pv = torch.cat([v.new_zeros(shift), v[:-shift]])
+        pf = torch.cat([f.new_zeros(shift), f[:-shift]])
+        v, f = v + (1.0 - f) * pv, torch.maximum(f, pf)
+        shift *= 2
+    return v
+
+
+def _segmented_sum_bounded(vals: torch.Tensor, keys: torch.Tensor,
+                           max_run: int) -> torch.Tensor:
+    """Inclusive segmented sum of a 1-D array sorted by ``keys``, for runs
+    of at most ``max_run`` equal keys: ceil(log2(max_run)) doubling
+    passes. Kept as the reference's API, like ``_segmented_sum_scan``."""
+    return _segsum_passes(vals[None], keys[None], 1, max_run)[0]
+
+
+def segsort_retrieve(packed: torch.Tensor, offsets: torch.Tensor,
+                     q_terms: torch.Tensor, q_vals: torch.Tensor, k: int,
+                     p_budget: int, n_docs: int, ops: Ops = KERNELS):
+    """The gather path: packed [nnz, 2] int32 postings (row, value bits),
+    offsets [V+1] int64, q_terms/q_vals [nq, T] (weight 0 ⇒ unused slot),
+    all on one device. Each query's matched postings are laid out in
+    term order over ``p_budget`` slots (slot -> (term, offset) by one
+    ``searchsorted`` over the cumulative list lengths, where the reference
+    scans T steps) and fetched with one row gather; the rank tail is the
+    DMA path's (``_rank_tail``, B4 and B5 under ``ops``). Returns (scores
+    [nq, k], rows [nq, k], matched [nq])."""
+    nq, T = q_terms.shape
+    q_terms, q_vals = _sort_query_terms(q_terms, q_vals)
+    qt = q_terms.long()
+    lens = (offsets[qt + 1] - offsets[qt]) * (q_vals > 0)
+    cum = torch.cumsum(lens, dim=1)
+    total = cum[:, -1]
+    pos = torch.arange(p_budget, device=qt.device).expand(nq, p_budget)
+    slot = torch.searchsorted(cum.contiguous(), pos.contiguous(),
+                              right=True).clamp_max(T - 1)
+    valid = pos < total[:, None]
+    flat_idx = offsets[qt].gather(1, slot) + pos - (cum - lens).gather(1, slot)
+    flat_idx = torch.where(valid, flat_idx, 0)
+    qw = q_vals.gather(1, slot)
+    fetched = packed[flat_idx.reshape(-1)]
+    rows = fetched[:, 0].view(nq, p_budget)
+    vals = fetched[:, 1].contiguous().view(torch.float32).view(nq, p_budget)
+    contrib = torch.where(valid, vals * qw, 0.0)
+    rows = torch.where(valid, rows, n_docs)
+    scores, top_rows = _rank_tail(rows, contrib, n_docs, k, T, ops)
+    return scores, top_rows, total
 
 
 def _blocked_certificate(bv: torch.Tensor, v: torch.Tensor, m: int,
@@ -347,6 +446,64 @@ def _pack_score_rows(scores: torch.Tensor, rows: torch.Tensor,
     return buf
 
 
+UPLOAD_CHUNK = 1 << 27      # postings per host->device step of the layouts
+
+
+def _chunks(n: int, step: int = UPLOAD_CHUNK):
+    return ((s, min(s + step, n)) for s in range(0, n, step))
+
+
+def _upload_dma(index, n_docs: int, pad: int, val_dtype: str, dev):
+    """The f32 or bf16-pair DMA layout of a host index on ``dev``: rows
+    int32 [nnz + pad] (the n_docs sentinel past nnz) and the value words
+    (f32 bits [nnz + pad], or ``pack_values_bf16``'s pairs of the same
+    length, rounded to bf16 by torch on the device)."""
+    nnz = index.nnz
+    rows = torch.full((nnz + pad,), n_docs, dtype=torch.int32, device=dev)
+    rows[:nnz].copy_(torch.from_numpy(index.doc_rows))
+    if val_dtype == "bf16":
+        n = max(nnz + pad, nnz + (nnz & 1))
+        n += n & 1
+        half = torch.zeros(n, dtype=torch.bfloat16, device=dev)
+        for s, e in _chunks(nnz):
+            half[s:e].copy_(torch.from_numpy(index.values[s:e]).to(dev))
+        return rows, half.view(torch.int32)
+    vals = torch.zeros(nnz + pad, dtype=torch.int32, device=dev)
+    vals[:nnz].copy_(torch.from_numpy(index.values.view(np.int32)))
+    return rows, vals
+
+
+def _upload_q8(index, n_docs: int, pad_to: int, dev):
+    """``pack_postings_q8`` of a host index, computed on ``dev`` (the
+    per-term scales on the host): (packed int32 [>= pad_to], scales)."""
+    nnz = index.nnz
+    scales = _q8_scales(index.offsets, index.values)
+    pad_word = (n_docs << 8) - ((1 << 32) if n_docs << 8 >= 1 << 31 else 0)
+    packed = torch.full((max(pad_to, nnz),), pad_word, dtype=torch.int32,
+                        device=dev)
+    offsets = torch.from_numpy(index.offsets).to(dev)
+    scales_dev = torch.from_numpy(scales).to(dev)
+    for s, e in _chunks(nnz):
+        pos = torch.arange(s, e, device=dev)
+        term = torch.searchsorted(offsets, pos, right=True) - 1
+        v = torch.from_numpy(index.values[s:e]).to(dev)
+        codes = torch.clamp(torch.round(v / scales_dev[term]), 1, 255).long()
+        w = (torch.from_numpy(index.doc_rows[s:e]).to(dev).long() << 8) | codes
+        packed[s:e] = torch.where(w >= 1 << 31, w - (1 << 32), w).to(
+            torch.int32)
+    return packed, scales
+
+
+def _upload_packed(index, dev) -> torch.Tensor:
+    """``pack_postings`` of a host index on ``dev``: [nnz, 2] int32."""
+    packed = torch.empty((index.nnz, 2), dtype=torch.int32, device=dev)
+    for s, e in _chunks(index.nnz):
+        packed[s:e, 0] = torch.from_numpy(index.doc_rows[s:e]).to(dev)
+        packed[s:e, 1] = torch.from_numpy(
+            index.values[s:e].view(np.int32)).to(dev)
+    return packed
+
+
 class SegsortEngine:
     """Owns the flat CSR on the device and runs query tiles over it.
 
@@ -367,18 +524,32 @@ class SegsortEngine:
 
     ``ops`` selects the kernels (default) or their plain versions for every
     tile this engine runs.
+
+    ``fetch`` picks the posting fetch: ``"dma"`` (the job-table fetch over
+    the kernels above), ``"gather"`` (``segsort_retrieve``: one row gather
+    from a packed [nnz, 2] matrix, budgeted in powers of two from
+    ``min_budget``, then the DMA path's rank tail) or ``"auto"`` (dma on
+    a CUDA device, gather on the CPU, as the reference picks by backend).
+    bf16 and q8 exist only on the DMA path, so they force it. A host index is laid out on ``device``
+    by torch ops there, bit-identical to ``pack_values_bf16`` and
+    ``pack_postings_q8``.
     """
 
     def __init__(self, index=None, topk: int = 1000,
                  query_terms_budget: int = 64, val_dtype: str = "f32",
-                 device="cuda", device_csr=None, ops: Ops = KERNELS):
+                 device="cuda", device_csr=None, ops: Ops = KERNELS,
+                 fetch: str = "dma", min_budget: int = 1 << 17):
         if val_dtype not in ("f32", "bf16", "q8"):
             raise ValueError(f"val_dtype {val_dtype!r}: f32, bf16 or q8")
+        if fetch not in ("auto", "dma", "gather"):
+            raise ValueError(f"fetch {fetch!r}: auto, dma or gather")
         self.topk = topk
         self.T = query_terms_budget
         self.val_dtype = val_dtype
         self.ops = ops
+        self.min_budget = min_budget
         self.fetch = "dma"
+        self.packed = None
         # job granularity of the value layout (job_need, bucket sizing, pad)
         self._chunk = CHUNK2 if val_dtype == "bf16" else CHUNK
         self._host_scales = None
@@ -413,25 +584,25 @@ class SegsortEngine:
             self.device = torch.device(device)
             self.n_docs = index.nb_docs()
             host_offsets = np.asarray(index.offsets, np.int64)
-            pad = self._chunk
-            if val_dtype == "q8":
-                packed, self._host_scales = pack_postings_q8(
-                    index.offsets, index.doc_rows, index.values, self.n_docs,
-                    index.nnz + pad)
-                self.rows_flat = torch.from_numpy(packed).to(self.device)
+            if fetch == "auto":
+                fetch = "dma" if self.device.type == "cuda" else "gather"
+            self.fetch = "dma" if val_dtype != "f32" else fetch
+            if self.fetch == "gather":
+                self.packed = _upload_packed(index, self.device)
+                self.rows_flat = self.valbits_flat = None
+            elif val_dtype == "q8":
+                if self.n_docs >= Q8_ROW_LIMIT:
+                    raise ValueError(f"q8 rows are 24-bit: n_docs "
+                                     f"{self.n_docs} >= {Q8_ROW_LIMIT}; "
+                                     "shard the corpus")
+                self.rows_flat, self._host_scales = _upload_q8(
+                    index, self.n_docs, index.nnz + self._chunk, self.device)
                 self.valbits_flat = None
             else:
-                rows = np.concatenate([index.doc_rows.astype(np.int32),
-                                       np.full(pad, self.n_docs, np.int32)])
-                if val_dtype == "bf16":
-                    vals = pack_values_bf16(index.values, len(rows))
-                else:
-                    vals = np.concatenate([
-                        index.values.astype(np.float32),
-                        np.zeros(pad, np.float32)]).view(np.int32)
-                self.rows_flat = torch.from_numpy(rows).to(self.device)
-                self.valbits_flat = torch.from_numpy(vals).to(self.device)
-        if self.rows_flat.shape[0] >= 2 ** 31:
+                self.rows_flat, self.valbits_flat = _upload_dma(
+                    index, self.n_docs, self._chunk, val_dtype, self.device)
+        flat = self.packed if self.fetch == "gather" else self.rows_flat
+        if flat.shape[0] >= 2 ** 31:
             raise ValueError("nnz exceeds int32: shard the index")
         self._host_offsets = host_offsets
         self._host_lens = np.diff(host_offsets)
@@ -440,7 +611,8 @@ class SegsortEngine:
 
     def sync_upload(self) -> None:
         """Block until the index buffers are on the device."""
-        force_materialized(self.rows_flat, self.valbits_flat, self.offsets)
+        force_materialized(self.rows_flat, self.valbits_flat, self.packed,
+                           self.offsets)
 
     def sparsify_queries(self, q_dense: np.ndarray
                          ) -> tuple[np.ndarray, np.ndarray]:
@@ -478,6 +650,19 @@ class SegsortEngine:
                            else self.sparsify_queries(q_dense))
         q_terms = np.ascontiguousarray(q_terms, np.int32)
         q_vals = np.ascontiguousarray(q_vals, np.float32)
+        if self.fetch == "gather":
+            # exact posting budget from the host lengths, a power of two
+            need = int((self._host_lens[q_terms] * (q_vals > 0)).sum(
+                axis=1).max(initial=0))
+            p_budget = self.min_budget
+            while p_budget < need:
+                p_budget *= 2
+            s, r, _ = segsort_retrieve(
+                self.packed, self.offsets,
+                torch.from_numpy(q_terms).to(self.device),
+                torch.from_numpy(q_vals).to(self.device), k, p_budget,
+                self.n_docs, self.ops)
+            return s, r, None, k
         jobs = bucket_jobs(int(self.job_need(q_terms, q_vals).max(initial=0)))
         if self.val_dtype == "q8":
             # exact fold: the device scores plain qw' * code
@@ -507,6 +692,8 @@ class SegsortEngine:
         and q8 layouts only, as in the reference."""
         if self.val_dtype == "bf16":
             raise ValueError("the device handoff rides the f32/q8 layouts")
+        if self.fetch != "dma":
+            raise ValueError("the device handoff needs fetch='dma'")
         k = min(topk or self.topk, self.n_docs)
         if self.val_dtype == "q8":
             q_vals_dev = q_vals_dev * self._scales_on_device()[

@@ -74,7 +74,10 @@ def tie_equal_topk(ids_a, scores_a, ids_b, scores_b, rtol: float = 1e-5,
     if missing:
         raise AssertionError(f"ids above the boundary score missing from "
                              f"the other list: {sorted(missing, key=str)[:10]}")
+    # one vectorized compare: a scalar assert per id costs seconds over
+    # thousands of 1000-long lists
     by_b = dict(zip(ids_b, sb))
-    for i, s in zip(ids_a, sa):
-        if i in by_b:
-            np.testing.assert_allclose(s, by_b[i], rtol=rtol, atol=atol)
+    pairs = [(s, by_b[i]) for i, s in zip(ids_a, sa) if i in by_b]
+    if pairs:
+        got, want = np.array(pairs).T
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)

@@ -1,5 +1,6 @@
 """The torch port and chip_smoke.py import neither JAX nor the JAX package
-(nor ml_dtypes, which the machine with the card lacks): an AST scan of
+(nor ml_dtypes or transformers, which the machine with the card lacks):
+an AST scan of
 every file, and an import of every module in a fresh interpreter that
 must leave them out of ``sys.modules``."""
 
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "scaling_retriever_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "scaling_retriever_tpu", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "flax", "scaling_retriever_tpu", "ml_dtypes",
+             "transformers", "tokenizers", "safetensors")
 
 
 def _port_files():
