@@ -42,7 +42,24 @@ Phases (any failure raises and exits non-zero):
      maxscore, certified there, against it) and evaluate_msmarco (on the
      f32 run.json, against the metrics of the plain path's run), each
      offline path's launch counts read as in 4;
-  6. print the card, per-kernel numbers as one JSON line, and last
+  6. the dense path: 8,841,823 L2-normalized 2048-wide bf16 rows made on
+     the card into a DenseFlatIndexer; B5 at its dense shape ([256,
+     262,144], block 4096, m 32) against its plain version; a Dev-size
+     stream (6,980 noisy copies of docs, k 1000) through search_knn's
+     blocked path against the direct path; a forced certificate failure;
+     the int8 layout on 1,024 queries against its code-exact direct path;
+     128 vectors served (RetrievalServer + DenseTileBackend, then
+     serve_http); 64 texts through LlamaBiDense at Llama-3.2-1B width and
+     eval_dense's write_doc_embeds, retrieval and evaluate_msmarco over
+     2,048 stand-in docs; the server CLI in subprocesses over a
+     serialized 65,536-doc cut and over phase 5's sparse cut (C++ hot
+     lane), each on the port the system picks, answers against the
+     in-process index and engine; then the corpus again as one f32 host
+     array through add_batch, as the file-based entry points add it: the
+     store stays on the host, the card holds only the bf16 and then the
+     int8 layout, and a tile answers as the card-built index did; launch
+     counts read as in 4;
+  7. print the card, per-kernel numbers as one JSON line, and last
      {"ok": true, "device": {...}}.
 """
 
@@ -53,6 +70,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,8 +92,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM data sheet, non-tensor f32
 
 
-# the kernels each serving path (phase 4) and offline path (phase 5)
-# must launch
+# the kernels each serving path (phase 4), offline path (phase 5) and
+# dense path (phase 6) must launch; topm_dense is B5 at its dense call site
 PATH_KERNELS = {
     "text q8 + pre-encoded f32": ("fetch_f32", "fetch_q8", "segsum", "topm"),
     "pre-encoded bf16": ("fetch_bf16", "segsum", "topm"),
@@ -85,6 +103,9 @@ PATH_KERNELS = {
     "offline q8": ("fetch_q8", "segsum", "topm"),
     "offline block-max": ("fetch_f32_blockmax", "segsum", "topm"),
     "offline maxscore": ("fetch_f32", "segsum", "topm"),
+    "dense bf16": ("topm_dense",),
+    "dense int8": ("topm_dense",),
+    "served dense": ("topm_dense",),
 }
 
 
@@ -118,8 +139,9 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    tb, to = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound(bytes_moved: float, ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    tb, to = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
 
@@ -1237,12 +1259,13 @@ def as_run(ids, rows, scores, doc_ids, n_docs) -> dict:
     return acc.to_run()
 
 
-def offline_phase(dev, model, index, cindex, cfg, seed, card_s) -> dict:
+def offline_phase(dev, model, index, cindex, cfg, seed, card_s,
+                  tmp: str) -> dict:
     """Phase 5: eval_sparse's path (SparseRetrieval over a query stream,
-    run.json, evaluate_msmarco) at MSMARCO scale. Returns the launch counts
-    of each offline path, each read over exactly that path."""
-    import tempfile
-
+    run.json, evaluate_msmarco) at MSMARCO scale. Its files go under
+    ``tmp``; the CLI's index cut stays there (``tmp/index_cut``) for phase
+    6. Returns the launch counts of each offline path, each read over
+    exactly that path."""
     from scaling_retriever_tpu_torch.data.collators import \
         LlamaSparseCollectionCollator
     from scaling_retriever_tpu_torch.data.loader import DataLoader
@@ -1282,8 +1305,6 @@ def offline_phase(dev, model, index, cindex, cfg, seed, card_s) -> dict:
         reset_timings()
         return ret.retrieve(batches, **kw)
 
-    tmp_ctx = tempfile.TemporaryDirectory()
-    tmp = tmp_ctx.name
     # ---- 1. the Dev-size stream on the f32 layout ----
     ret = SparseRetrieval(model, index, topk=TOPK, engine="auto",
                           query_tile=TILE, device=dev)
@@ -1548,12 +1569,688 @@ def offline_phase(dev, model, index, cindex, cfg, seed, card_s) -> dict:
         f"recall_10 {perf['recall']['recall_10']:.6f}, recall_1000 "
         f"{perf['recall']['recall_1000']:.6f}; == the metrics of the "
         f"plain-path run")
-    tmp_ctx.cleanup()
     log(f"phase 5 (offline path): {time.perf_counter() - t_phase:.1f} s, "
         f"peak card memory "
         f"{max(peaks + [torch.cuda.max_memory_allocated(dev)]) / 1e9:.2f} "
         f"GB allocated; card {card_s}")
     return paths
+
+
+# ---- phase 6: the dense path
+
+DENSE_DIM = 2048              # Llama-3.2-1B's hidden size
+DENSE_CHUNK = 262_144
+DENSE_TILE = 256
+DENSE_M, DENSE_BLOCK = 32, 4096
+INT8_Q = 1_024
+SERVED_Q = 128
+DOC_TEXTS = 2_048
+CLI_DENSE_DOCS = 65_536
+CLI_Q = 16
+BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16
+
+
+def corpus_chunks(dev, seed: int):
+    """N_DOCS L2-normalized DENSE_DIM-wide rows made on the card by chunks
+    from a seeded generator and rounded to bf16, so that their f32 widening
+    equals the bf16 layout: yields (first row, bf16 [n, DENSE_DIM])."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for s0 in range(0, N_DOCS, DENSE_CHUNK):
+        n = min(DENSE_CHUNK, N_DOCS - s0)
+        v = torch.randn(n, DENSE_DIM, generator=g, device=dev)
+        yield s0, torch.nn.functional.normalize(v, dim=1).bfloat16()
+
+
+def empty_dense_index(dev):
+    """A bf16 DenseFlatIndexer of phase 6's shape on ``dev``."""
+    from scaling_retriever_tpu_torch.index.dense_index import \
+        DenseFlatIndexer
+
+    idx = DenseFlatIndexer(device=dev, chunk=DENSE_CHUNK,
+                           query_tile=DENSE_TILE, block_m=DENSE_M,
+                           sel_block=DENSE_BLOCK)
+    idx.init_index(DENSE_DIM)
+    return idx
+
+
+def dense_corpus(dev, seed: int):
+    """The corpus added to a bf16 DenseFlatIndexer as tensors on the card
+    (ids = rows): its store is the bf16 layout."""
+    idx = empty_dense_index(dev)
+    for s0, v in corpus_chunks(dev, seed):
+        idx.add_batch(range(s0, s0 + len(v)), v)
+    torch.cuda.synchronize()
+    return idx
+
+
+def meminfo_bytes(key: str) -> int:
+    """A /proc/meminfo entry (e.g. MemAvailable)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise KeyError(key)
+
+
+def host_peak_bytes() -> int:
+    """This process's peak resident memory."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def host_corpus(dev, seed: int) -> np.ndarray:
+    """The same corpus as one f32 host array [N_DOCS, DENSE_DIM], what
+    ``deserialize`` reads from an index_srt.npz or eval_dense from its
+    embedding files, copied off the card chunk by chunk."""
+    need = N_DOCS * DENSE_DIM * 4
+    avail = meminfo_bytes("MemAvailable")
+    check(avail > 1.15 * need, f"host memory: {avail / 1e9:.1f} GB "
+          f"available, the f32 corpus needs {need / 1e9:.1f} GB")
+    import mmap
+
+    # pages mapped in one call up front: first touches of fresh pages
+    # fault one by one, several times slower on the card's host
+    buf = mmap.mmap(-1, need, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS
+                    | mmap.MAP_POPULATE)
+    out = np.frombuffer(buf, np.float32).reshape(N_DOCS, DENSE_DIM)
+    for s0, v in corpus_chunks(dev, seed):
+        torch.from_numpy(out[s0:s0 + len(v)]).copy_(v)
+    return out
+
+
+def dense_rows(idx, rows: torch.Tensor) -> torch.Tensor:
+    """The stored vectors of ``rows`` (f32), gathered from the chunks."""
+    rows = rows.cpu()
+    out = torch.empty(len(rows), idx.vector_sz, device=idx.device)
+    for c, blk in enumerate(idx._store):
+        sel = torch.nonzero(rows // idx.chunk == c).flatten()
+        if len(sel):
+            out[sel.to(idx.device)] = blk[(rows[sel] % idx.chunk).to(
+                idx.device)].float()
+    return out
+
+
+def noisy_queries(idx, n: int, g) -> tuple[torch.Tensor, torch.Tensor]:
+    """n queries, each a stored doc plus noise of 0.7 its norm,
+    normalized (its source doc scores ~0.82): (queries f32, source rows)."""
+    dev = idx.device
+    src = torch.randint(0, idx.ntotal, (n,), generator=g, device=dev)
+    noise = torch.nn.functional.normalize(
+        torch.randn(n, idx.vector_sz, generator=g, device=dev), dim=1)
+    q = dense_rows(idx, src) + 0.7 * noise
+    return torch.nn.functional.normalize(q, dim=1), src
+
+
+def result_arrays(res) -> tuple[np.ndarray, np.ndarray]:
+    """search_knn's [(ids, scores)] of equal lengths → (ids, scores)."""
+    ids = np.array([r[0] for r in res])
+    scores = np.array([r[1] for r in res], np.float32)
+    check(ids.ndim == 2 and ids.shape == scores.shape,
+          "ragged dense results")
+    return ids, scores
+
+
+def same_topk(a, b, label: str, rtol: float = 0.0) -> None:
+    """Two (ids, scores) arrays of top-k lists, tie-equal row by row. At
+    rtol 0 in one array compare: scores bit-equal, ids equal wherever the
+    score is above the row's last (boundary) score, each row in (score
+    desc, id) order. Otherwise ``tie_equal_topk`` per row."""
+    from scaling_retriever_tpu_torch.utils.utils import tie_equal_topk
+
+    (ia, sa), (ib, sb) = a, b
+    check(ia.shape == ib.shape, f"{label}: shapes {ia.shape} {ib.shape}")
+    if rtol:
+        for i in range(len(ia)):
+            tie_equal_topk(ia[i], sa[i], ib[i], sb[i], rtol=rtol)
+        return
+    check(np.array_equal(sa, sb), f"{label}: scores differ")
+    oa = np.lexsort((ia, -sa))
+    ob = np.lexsort((ib, -sb))
+    ia, sa = np.take_along_axis(ia, oa, 1), np.take_along_axis(sa, oa, 1)
+    ib = np.take_along_axis(ib, ob, 1)
+    clear = sa > sa[:, -1:]
+    check(np.array_equal(ia[clear], ib[clear]),
+          f"{label}: ids above the boundary score differ")
+
+
+def dense_kernel_check(idx, q, card_s) -> dict:
+    """B5 at the dense site's shape on two real slabs (the first chunk and
+    the last, whose zero tail ties whole blocks at 0), bit-equal to the
+    plain loop; timed beside its bound and torch.topk. Returns the report
+    entry (launches filled later)."""
+    from scaling_retriever_tpu_torch.index import dense_index as di
+    from scaling_retriever_tpu_torch.ops import topm
+
+    docs = idx._materialize()
+    q16 = q.bfloat16()
+    nblk = DENSE_CHUNK // DENSE_BLOCK
+    zero_blocks = (N_DOCS % DENSE_CHUNK and
+                   (DENSE_CHUNK - N_DOCS % DENSE_CHUNK) // DENSE_BLOCK)
+    s = None
+    for c in (len(docs) - 1, 0):
+        s = di._score_slab(q16, docs[c], None, None)
+        v, i = topm.block_topm(s, DENSE_M, DENSE_BLOCK, site="topm_dense")
+        pv, pi = topm.block_topm_plain(s, DENSE_M, DENSE_BLOCK)
+        check(torch.equal(v, pv) and torch.equal(i, pi),
+              f"B5 != plain at the dense shape (chunk {c})")
+        if c == len(docs) - 1 and zero_blocks:
+            lanes = torch.arange(DENSE_M, device=s.device, dtype=torch.int32)
+            z = i[:, nblk - zero_blocks:]
+            check(bool((z == lanes).all()) and bool(
+                (v[:, nblk - zero_blocks:] == 0).all()),
+                "B5: the zero tail's tied blocks must return lanes 0..m-1")
+    nq = s.shape[0]
+    b_ms, b_by = bound(nq * DENSE_CHUNK * 4 + nq * nblk * DENSE_M * 8,
+                       nq * DENSE_CHUNK)
+    entry = {
+        "name": "topm_dense", "route": "cuda",
+        "source": "scaling_retriever_tpu_torch/csrc/topm.cu",
+        "replaces": "scaling_retriever_tpu/ops/pallas_topm.py:35 (third "
+                    "call site scaling_retriever_tpu/index/dense_index.py:"
+                    "115)",
+        "launches": 0, "max_abs_err": 0.0,
+        "ms": time_ms(lambda: topm.block_topm(s, DENSE_M, DENSE_BLOCK,
+                                              site="topm_dense"), 20),
+        "plain_ms": time_ms(lambda: topm.block_topm_plain(
+            s, DENSE_M, DENSE_BLOCK), 2, 1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: torch.topk(
+            s.view(nq, nblk, DENSE_BLOCK), DENSE_M), 20)}
+    log(f"B5 top-m dense at [{nq}, {DENSE_CHUNK}], block {DENSE_BLOCK}, m "
+        f"{DENSE_M}: {entry['ms']:.4f} ms, plain {entry['plain_ms']:.2f} ms,"
+        f" torch.topk {entry['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); == plain on the first chunk's slab and the last's "
+        f"({zero_blocks} all-zero blocks: lanes 0..{DENSE_M - 1}); card "
+        f"{card_s}")
+    return entry
+
+
+def http_json(url: str, body=None, timeout: float = 120):
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.load(r)
+
+
+def start_cli(args: list, log_path: str):
+    """The server CLI in a subprocess of this interpreter, from the
+    repository root, on a port the system picks (``--port 0``); its output
+    goes to ``log_path``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "w") as f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "scaling_retriever_tpu_torch.serving.server",
+             *args, "--port", "0"], cwd=root, stdout=f,
+            stderr=subprocess.STDOUT)
+
+
+def wait_healthy(proc, log_path: str, timeout: float = 240):
+    """Wait for the CLI's ``serving on http://host:PORT`` line (printed
+    once the port is bound) and then for its /healthz. Returns (port,
+    seconds since the call)."""
+    import re
+    import urllib.error
+
+    t0 = time.perf_counter()
+    port = None
+    while time.perf_counter() - t0 < timeout:
+        if proc.poll() is not None:
+            break
+        if port is None:
+            with open(log_path) as f:
+                m = re.search(r"serving on http://[^\s]+:(\d+)", f.read())
+            if m is None:
+                time.sleep(0.5)
+                continue
+            port = int(m.group(1))
+        try:
+            if http_json(f"http://127.0.0.1:{port}/healthz", timeout=5)["ok"]:
+                return port, time.perf_counter() - t0
+        except (urllib.error.URLError, ConnectionError, OSError):
+            time.sleep(0.5)
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    raise RuntimeError(f"server CLI (port {port}) not healthy (exit "
+                       f"{proc.poll()}):\n{tail}")
+
+
+def stop_cli(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=30)
+
+
+def host_load(dev, seed: int, q, head: dict, bf16_bytes: int,
+              int8_bytes: int, card_s: str) -> int:
+    """The corpus as the file-based entry points add it (``deserialize``,
+    ``LocalDenseRetriever``): one f32 host array through ``add_batch``. The
+    store must stay on the host (its full chunks views of the array), the
+    card must hold the bf16 layout and then the int8 one and nothing else,
+    and the first tile ``q`` must answer as the card-built index did
+    (``head``: scores bit-equal, ids tie-equal). Returns the card's peak
+    allocation while the layouts were built."""
+    t0 = time.perf_counter()
+    host = host_corpus(dev, seed)
+    made_s = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated(dev)
+    idx = empty_dense_index(dev)
+    t0 = time.perf_counter()
+    idx.add_batch(range(N_DOCS), host)
+    add_s = time.perf_counter() - t0
+    check(all(b.device.type == "cpu" for b in idx._store),
+          "numpy rows must stay in a host store")
+    views = sum(b.data_ptr() == host[c * DENSE_CHUNK:].ctypes.data
+                for c, b in enumerate(idx._store))
+    check(views == N_DOCS // DENSE_CHUNK,
+          f"{views} of the store's chunks are views of the added array")
+    log(f"host-array load at full depth: {N_DOCS} x {DENSE_DIM} f32 "
+        f"({host.nbytes / 1e9:.2f} GB) copied off the card in {made_s:.1f} s,"
+        f" added in {add_s:.2f} s ({views} chunks kept as views); host peak "
+        f"RSS {host_peak_bytes() / 1e9:.1f} GB; the card held "
+        f"{base / 1e9:.2f} GB before")
+    peaks = []
+    for quant, want_b in ((None, bf16_bytes), ("int8", int8_bytes)):
+        idx.quantize = quant
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        idx._materialize()
+        built_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated(dev) - base
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        peak = peaks[-1] - base
+        # an f32 copy of the store on the card would add twice the bf16
+        # layout's bytes
+        check(want_b <= held < want_b + 2**26, f"card holds {held} B over "
+              f"the layout's {want_b} B ({quant or 'bf16'})")
+        label = quant or "bf16"
+        same_topk(result_arrays(idx.search_knn(q, TOPK)), head[label],
+                  f"host-array load ({label}) vs the card-built index")
+        log(f"host-array load, {label} layout: built from the host store in "
+            f"{built_s:.1f} s ({host.nbytes / built_s / 1e9:.1f} GB/s of f32 "
+            f"moved), the card holds {held / 1e9:.2f} GB over what it held "
+            f"before (peak {peak / 1e9:.2f} GB while built); a tile's answers"
+            f" == the card-built index's (scores bit-equal, ids tie-equal); "
+            f"card {card_s}")
+    del idx, host
+    return max(peaks)
+
+
+def dense_phase(dev, model, seed: int, card_s: str, tmp: str):
+    """Phase 6: the dense path at 8,841,823 x 2048 (bf16, then int8),
+    served in process, over HTTP and through the server CLI, and
+    eval_dense's task bodies with LlamaBiDense at Llama-3.2-1B width.
+    Returns (launch counts per dense path, B5's dense report entry)."""
+    from scaling_retriever_tpu_torch.data.collators import \
+        LlamaDenseCollectionCollator
+    from scaling_retriever_tpu_torch.data.loader import DataLoader
+    from scaling_retriever_tpu_torch.evaluation import eval_dense, metrics
+    from scaling_retriever_tpu_torch.index.dense_index import \
+        DenseFlatIndexer
+    from scaling_retriever_tpu_torch.index.inverted_index import SparseIndex
+    from scaling_retriever_tpu_torch.models.encoder import LlamaBiDense
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+    from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
+    from scaling_retriever_tpu_torch.serving.server import (
+        DenseTileBackend, RetrievalServer, serve_http)
+    from scaling_retriever_tpu_torch.utils.utils import tie_equal_topk
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "f32 products must not run in TF32")
+
+    def lap(step: str) -> None:
+        log(f"phase 6 at {time.perf_counter() - t_phase:.1f} s: {step}")
+    paths = {}
+    procs = []
+    try:
+        # ---- 1. the corpus ----
+        t0 = time.perf_counter()
+        idx = dense_corpus(dev, seed + 3)
+        nbytes = sum(b.nbytes for b in idx._store)
+        log(f"dense corpus: {idx.ntotal} x {DENSE_DIM} bf16 rows in "
+            f"{len(idx._store)} chunks of {DENSE_CHUNK} ({nbytes / 1e9:.2f} "
+            f"GB on the card, {DENSE_CHUNK * len(idx._store) - N_DOCS} zero "
+            f"rows) made and added in {time.perf_counter() - t0:.1f} s")
+        check(idx._materialize()[0] is idx._store[0],
+              "the bf16 layout must be the store itself")
+        g = torch.Generator(device=dev).manual_seed(seed + 4)
+        q_all, src = noisy_queries(idx, DEV_QUERIES, g)
+
+        # ---- 2. B5 at the dense shape ----
+        lap("B5 at the dense shape")
+        entry = dense_kernel_check(idx, q_all[:DENSE_TILE], card_s)
+
+        # ---- 3. the Dev-size stream, blocked (B5) against direct ----
+        lap("the Dev-size stream")
+        idx.search_knn(q_all[:DENSE_TILE], TOPK)          # warm
+        cuda_lib.reset_launches()
+        f0 = idx.fallbacks
+        t0 = time.perf_counter()
+        res = idx.search_knn(q_all, TOPK)
+        wall = time.perf_counter() - t0
+        paths["dense bf16"] = dict(cuda_lib.LAUNCHES)
+        blocked = result_arrays(res)
+        del res
+        n_tiles = -(-DEV_QUERIES // DENSE_TILE)
+        check(paths["dense bf16"]["topm_dense"] == n_tiles * len(idx._store),
+              f"B5 launches {paths['dense bf16']['topm_dense']} != "
+              f"{n_tiles} tiles x {len(idx._store)} chunks")
+        q_tile = q_all[:DENSE_TILE]
+        tile_ms = time_ms(lambda: idx.drain_tile(
+            idx.dispatch_tile(q_tile, TOPK), DENSE_TILE), 3, 1)
+        idx.selection = "direct"
+        t0 = time.perf_counter()
+        direct = result_arrays(idx.search_knn(q_all, TOPK))
+        wall_d = time.perf_counter() - t0
+        direct_ms = time_ms(lambda: idx.drain_tile(
+            idx.dispatch_tile(q_tile, TOPK), DENSE_TILE), 2, 1)
+        idx.selection = "auto"
+        same_topk(blocked, direct, "dense bf16 blocked vs direct")
+        hit = float((blocked[0][:, 0] == src.cpu().numpy()).mean())
+        check(hit > 0.99, f"the source doc tops only {hit:.4f} of queries")
+        # the tile's bound: every doc read once against the bf16 products;
+        # this design also writes each chunk's f32 slab and B5 reads it
+        flops = 2 * DENSE_TILE * DENSE_DIM * N_DOCS
+        b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
+        slab_ms, _ = bound(nbytes + 2 * DENSE_TILE * DENSE_CHUNK
+                           * len(idx._store) * 4, flops, BF16_OPS_PER_S)
+        log(f"dense bf16 stream: {DEV_QUERIES} queries, k {TOPK}, "
+            f"search_knn {wall:.3f} s = {DEV_QUERIES / wall:.1f} QPS "
+            f"(direct path {wall_d:.3f} s); a {DENSE_TILE}-query tile "
+            f"{tile_ms:.2f} ms blocked ({DENSE_TILE / tile_ms * 1e3:.0f} QPS "
+            f"device), {direct_ms:.2f} ms direct, bound {b_ms:.2f} ms "
+            f"({b_by}; {slab_ms:.2f} ms with the slabs' traffic); fallbacks "
+            f"{idx.fallbacks - f0}; == the direct path (scores bit-equal, ids"
+            f" tie-equal); source doc first for {hit:.4f}; card {card_s}")
+        profile_tile(f"dense bf16 tile ({DENSE_TILE} queries x {N_DOCS} "
+                     f"docs)", lambda: idx.drain_tile(
+                         idx.dispatch_tile(q_tile, TOPK), DENSE_TILE), card_s)
+        del direct
+
+        # ---- 4. a forced certificate failure ----
+        lap("a forced certificate failure")
+        c, b = len(idx._store) // 2, DENSE_CHUNK // DENSE_BLOCK // 2
+        rows = slice(b * DENSE_BLOCK, (b + 1) * DENSE_BLOCK)
+        saved = idx._store[c][rows].clone()
+        near = q_all[:1] + 0.05 * torch.nn.functional.normalize(torch.randn(
+            DENSE_BLOCK, DENSE_DIM, generator=g, device=dev), dim=1)
+        idx._store[c][rows] = torch.nn.functional.normalize(
+            near, dim=1).bfloat16()
+        f0 = idx.fallbacks
+        forced = result_arrays(idx.search_knn(q_tile, TOPK))
+        check(idx.fallbacks == f0 + 1, "the forced tile did not rerun")
+        idx.selection = "direct"
+        same_topk(forced, result_arrays(idx.search_knn(q_tile, TOPK)),
+                  "forced fallback vs direct")
+        idx.selection = "auto"
+        lo = c * DENSE_CHUNK + b * DENSE_BLOCK
+        in_blk = int(((forced[0][0] >= lo)
+                      & (forced[0][0] < lo + DENSE_BLOCK)).sum())
+        check(in_blk == TOPK, f"{in_blk} of the top-{TOPK} in the block")
+        idx._store[c][rows] = saved
+        del saved, forced
+        log(f"forced certificate failure: a {DENSE_BLOCK}-doc block of "
+            f"near-copies of query 0 (m-th value above the merged k-th); the "
+            f"tile reran on the direct path and equals it; all {TOPK} hits "
+            f"of query 0 in the block")
+
+        # ---- 5. the int8 layout ----
+        lap("the int8 layout")
+        t0 = time.perf_counter()
+        idx.quantize = "int8"
+        codes = idx._materialize()
+        q8_s = time.perf_counter() - t0
+        q8_bytes = (sum(x.nbytes for x in codes)
+                    + sum(x.nbytes for x in idx._layout[2]))
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        got8 = result_arrays(idx.search_knn(q_all[:INT8_Q], TOPK))
+        wall8 = time.perf_counter() - t0
+        paths["dense int8"] = dict(cuda_lib.LAUNCHES)
+        tile8_ms = time_ms(lambda: idx.drain_tile(
+            idx.dispatch_tile(q_tile, TOPK), DENSE_TILE), 3, 1)
+        idx.selection = "direct"
+        same_topk(got8, result_arrays(idx.search_knn(q_all[:INT8_Q], TOPK)),
+                  "dense int8 blocked vs the code-exact direct path")
+        idx.selection = "auto"
+        agree = float(np.mean([len(set(a[:10]) & set(b_[:10])) / 10 for a, b_
+                               in zip(got8[0], blocked[0][:INT8_Q])]))
+        log(f"dense int8: codes + scales {q8_bytes / 1e9:.2f} GB (bf16 "
+            f"{nbytes / 1e9:.2f} GB), quantized on the card in {q8_s:.1f} s; "
+            f"{INT8_Q} queries in {wall8:.3f} s = {INT8_Q / wall8:.1f} QPS; "
+            f"a tile {tile8_ms:.2f} ms (bf16 {tile_ms:.2f} ms); == the "
+            f"code-exact direct path (scores bit-equal, ids tie-equal); top-10"
+            f" overlap with bf16 {agree:.4f}; card {card_s}")
+        peak_int8 = torch.cuda.max_memory_allocated(dev)
+        # the first tile's answers, for the host-array load in step 9
+        head = {"bf16": (blocked[0][:DENSE_TILE], blocked[1][:DENSE_TILE]),
+                "int8": (got8[0][:DENSE_TILE], got8[1][:DENSE_TILE])}
+        idx.quantize = None
+        del codes, got8
+        idx._materialize()
+        free()
+
+        # ---- 6. served: in process and over HTTP ----
+        lap("served")
+        reqs = list(q_all[:SERVED_Q].cpu().numpy())
+        want = result_arrays(idx.search_knn(q_all[:SERVED_Q], TOPK))
+        backend = DenseTileBackend(idx, topk=TOPK, widths=(8, 64))
+        server = RetrievalServer(backend)
+        server.warmup(reqs[:64], passes=1)
+        cuda_lib.reset_launches()
+        server.start()
+        try:
+            res, s_served = serve_requests(server, reqs)
+            paths["served dense"] = dict(cuda_lib.LAUNCHES)
+            lone = server.search(reqs[0])
+            same_topk(result_arrays(res), want, "served vs search_knn",
+                      rtol=1e-5)
+            same_topk(result_arrays([lone]), (want[0][:1], want[1][:1]),
+                      "a lone request (8-wide rung) vs search_knn",
+                      rtol=1e-5)
+            httpd = serve_http(server, "127.0.0.1", 0, block=False)
+            import threading
+            th = threading.Thread(target=httpd.serve_forever, daemon=True)
+            th.start()
+            try:
+                base = f"http://127.0.0.1:{httpd.server_address[1]}"
+                check(http_json(f"{base}/healthz")["ok"], "healthz")
+                body = {"queries": [{"id": f"q{i}", "vector": reqs[i].tolist()}
+                                    for i in range(8)], "topk": 100}
+                got = http_json(f"{base}/search", body)["results"]
+                for i in range(8):
+                    ids, sc = server.search(reqs[i], topk=100)
+                    tie_equal_topk(list(map(int, got[f"q{i}"])),
+                                   list(got[f"q{i}"].values()), ids, sc,
+                                   rtol=1e-6)
+                st = http_json(f"{base}/stats")
+                check(st["n_requests"] >= SERVED_Q + 9, f"stats {st}")
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+        finally:
+            server.stop()
+        log(f"served dense: {SERVED_Q} requests in {s_served:.3f} s = "
+            f"{SERVED_Q / s_served:.1f} QPS (widths 8, 64) == search_knn "
+            f"(tie-equal, rtol 1e-5); HTTP POST of 8 vectors == "
+            f"server.search, /healthz, /stats; server {server.stats()}; "
+            f"card {card_s}")
+
+        # ---- 7. text: LlamaBiDense at Llama-3.2-1B width ----
+        lap("text through LlamaBiDense")
+        dense_model = LlamaBiDense(model.params, model.config)
+        tok = StandInTokenizer(VOCAB)
+        rng = np.random.default_rng(seed + 5)
+        texts = [(f"t{i}", " ".join(f"w{x}" for x in rng.integers(
+            0, VOCAB, int(rng.integers(5, 33))))) for i in range(N_TEXTS)]
+        loader = DataLoader(texts, TILE, LlamaDenseCollectionCollator(tok, 64))
+        t0 = time.perf_counter()
+        q_text = torch.cat([dense_model.encode(b["input_ids"],
+                                               b["attention_mask"])
+                            for b in loader])
+        enc_s = time.perf_counter() - t0
+        check(q_text.shape == (N_TEXTS, DENSE_DIM)
+              and bool(torch.isfinite(q_text).all()), "text reps")
+        text_res = result_arrays(idx.search_knn(q_text, TOPK))
+        idx.selection = "direct"
+        same_topk(text_res, result_arrays(idx.search_knn(q_text, TOPK)),
+                  "text blocked vs direct")
+        idx.selection = "auto"
+        # eval_dense's task bodies over stand-in documents
+        corpus = os.path.join(tmp, "dense_corpus.tsv")
+        with open(corpus, "w") as f:
+            for d in range(DOC_TEXTS):
+                words = rng.integers(0, VOCAB, int(rng.integers(40, 200)))
+                f.write(f"p{d}\t{' '.join(f'w{x}' for x in words)}\n")
+        qpath = os.path.join(tmp, "dense_queries.tsv")
+        with open(qpath, "w") as f:
+            for qid, text in texts:
+                f.write(f"{qid}\t{text}\n")
+        emb_dir = os.path.join(tmp, "dense_embeds")
+        out_dir = os.path.join(tmp, "dense_out")
+        common = ["--data_source", "msmarco", "--eval_batch_size", "128",
+                  "--device", str(dev)]
+        t0 = time.perf_counter()
+        eval_dense.write_doc_embeds(eval_dense.build_parser().parse_args(
+            ["--task_name", "write_doc_embeds", "--corpus_path", corpus,
+             "--doc_embed_dir", emb_dir, "--doc_max_length", "192"]
+            + common), model=dense_model, tokenizer=tok)
+        emb_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eval_dense.dense_retrieval(eval_dense.build_parser().parse_args(
+            ["--task_name", "retrieval", "--query_path", qpath,
+             "--doc_embed_dir", emb_dir, "--out_dir", out_dir,
+             "--query_max_length", "64", "--top_k", str(TOPK)] + common),
+            model=dense_model, tokenizer=tok)
+        ret_s = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "run.json")) as f:
+            run = json.load(f)
+        check(len(run) == N_TEXTS, f"dense run.json has {len(run)} queries")
+        local = eval_dense.LocalDenseRetriever(DENSE_DIM, device=dev)
+        local.index_encoded_data(emb_dir)
+        check(local.indexer.ntotal == DOC_TEXTS, "LocalDenseRetriever size")
+        res_l = local.get_top_docs(q_text, TOPK)
+        for (qid, _), (ids, sc) in zip(texts, res_l):
+            w = ranked(run[qid])
+            tie_equal_topk([d for d, _ in w], [s_ for _, s_ in w],
+                           list(map(str, ids)), sc, rtol=1e-4, atol=1e-6)
+        qrel = {}
+        for qid, _ in texts:
+            top = ranked(run[qid])[:10]
+            above = [d for d, s_ in top if s_ > top[-1][1]]
+            if above:
+                qrel[qid] = {above[int(rng.integers(len(above)))]: 1}
+        qrel_path = os.path.join(tmp, "dense_qrel.json")
+        with open(qrel_path, "w") as f:
+            json.dump(qrel, f)
+        eval_dense.main(["--task_name", "evaluate_msmarco",
+                         "--eval_qrel_path", qrel_path, "--eval_run_path",
+                         os.path.join(out_dir, "run.json"), "--eval_metric",
+                         "['mrr_10','recall']", "--out_dir", out_dir])
+        with open(os.path.join(out_dir, "perf.json")) as f:
+            perf = json.load(f)
+        want_perf = {"mrr_10": {"mrr_10": metrics.mrr_k(run, qrel, 10)},
+                     "recall": metrics.evaluate(run, qrel, "recall")}
+        check(perf == want_perf, f"perf.json {perf} != {want_perf}")
+        log(f"dense text: {N_TEXTS} texts encoded by LlamaBiDense (Llama-"
+            f"3.2-1B width, random bf16 weights) in {enc_s:.2f} s, searched "
+            f"== the direct path; write_doc_embeds over {DOC_TEXTS} stand-in"
+            f" docs (doc_max_length 192) {emb_s:.1f} s; retrieval to run.json"
+            f" {ret_s:.1f} s, == LocalDenseRetriever over plan.json (tie-"
+            f"equal, rtol 1e-4); evaluate_msmarco perf.json == the metrics "
+            f"of the run (MRR@10 {perf['mrr_10']['mrr_10']:.4f}, {len(qrel)}"
+            f" queries with a qrel); card {card_s}")
+
+        # ---- 8. the server CLI as users start it ----
+        lap("the server CLI")
+        cut = DenseFlatIndexer(device=dev, chunk=DENSE_CHUNK)
+        cut.init_index(DENSE_DIM)
+        cut.add_batch(range(CLI_DENSE_DOCS), idx._store[0][:CLI_DENSE_DOCS])
+        dense_dir = os.path.join(tmp, "dense_cut")
+        cut.serialize(dense_dir)
+        # emptied, not only dropped: the served backend and the HTTP
+        # handler still reference it
+        idx.init_index(DENSE_DIM)
+        del idx
+        free()
+        logs = (os.path.join(tmp, "cli_dense.log"),
+                os.path.join(tmp, "cli_sparse.log"))
+        t0 = time.perf_counter()
+        procs.append(start_cli(["--dense_index_dir", dense_dir, "--topk",
+                                str(TOPK), "--widths", "8,64"], logs[0]))
+        cut_dir = os.path.join(tmp, "index_cut")
+        procs.append(start_cli(["--index_dir", cut_dir, "--topk", str(TOPK),
+                                "--max_need_jobs", "32"], logs[1]))
+        ports, up = zip(*[wait_healthy(p, lg) for p, lg in zip(procs, logs)])
+        up_s = time.perf_counter() - t0
+        qd = q_all[:CLI_Q]
+        body = {"queries": [{"id": f"q{i}", "vector": v.tolist()}
+                            for i, v in enumerate(qd.cpu().numpy())]}
+        got = http_json(f"http://127.0.0.1:{ports[0]}/search", body)["results"]
+        for i, (ids, sc) in enumerate(cut.search_knn(qd, TOPK)):
+            tie_equal_topk(list(map(int, got[f"q{i}"])),
+                           list(got[f"q{i}"].values()), ids, sc, rtol=1e-5)
+        del cut
+        # sparse: 48-term stream queries need 48 jobs on the cut (> 32: the
+        # C++ hot lane), 16-term ones 16 (the device lane)
+        sidx = SparseIndex.load(cut_dir)
+        eng = SegsortEngine(sidx, topk=TOPK, device=dev)
+        qt, qv, _ = dev_stream(np.random.default_rng(seed + 6))
+        qt, qv = qt[:2 * CLI_Q], qv[:2 * CLI_Q].copy()
+        qv[CLI_Q:, 16:] = 0.0
+        need = eng.job_need(qt, qv)
+        check(int((need > 32).sum()) == CLI_Q, f"job needs {need}")
+        body = {"queries": [{"id": f"s{i}", "terms": qt[i][qv[i] > 0].tolist(),
+                             "vals": qv[i][qv[i] > 0].tolist()}
+                            for i in range(2 * CLI_Q)]}
+        got = http_json(f"http://127.0.0.1:{ports[1]}/search", body)["results"]
+        st = http_json(f"http://127.0.0.1:{ports[1]}/stats")
+        check(st["n_hot"] == CLI_Q, f"hot lane took {st['n_hot']} queries")
+        scores, rows = eng.finalize(eng.retrieve_tile_async(
+            None, TOPK, sparsified=(qt, qv)))
+        for i in range(2 * CLI_Q):
+            fin = np.isfinite(scores[i]) & (rows[i] < eng.n_docs)
+            g_ = ranked(got[f"s{i}"])
+            tie_equal_topk([sidx.doc_ids[r] for r in rows[i][fin]],
+                           scores[i][fin], [d for d, _ in g_],
+                           [s_ for _, s_ in g_], rtol=1e-6)
+        log(f"server CLI: --dense_index_dir over a serialized cut of "
+            f"{CLI_DENSE_DOCS} docs and --index_dir over phase 5's cut "
+            f"(default --hot_lane cpp, --max_need_jobs 32), both healthy "
+            f"{up_s:.1f} s after launch ({up[0]:.1f} / {up[1]:.1f} s); "
+            f"{CLI_Q} vector POSTs == the in-process index (tie-equal, rtol "
+            f"1e-5); {2 * CLI_Q} sparse POSTs == the device engine (tie-"
+            f"equal, rtol 1e-6), {st['n_hot']} of them on the C++ hot lane "
+            f"(hot p50 {st.get('hot_latency_p50_ms')} ms)")
+        del eng, sidx
+        stop_cli(procs)
+        free()
+
+        # ---- 9. the file-based load at full depth ----
+        lap("a host-array load at full depth")
+        peak_steps = torch.cuda.max_memory_allocated(dev)
+        peak_host = host_load(dev, seed + 3, q_all[:DENSE_TILE], head,
+                              nbytes, q8_bytes, card_s)
+    finally:
+        stop_cli(procs)
+    peak = max(torch.cuda.max_memory_allocated(dev), peak_int8, peak_steps,
+               peak_host)
+    check(peak < 70e9, f"phase 6 peak card memory {peak / 1e9:.2f} GB")
+    log(f"phase 6 (dense path): {time.perf_counter() - t_phase:.1f} s, peak "
+        f"card memory {peak / 1e9:.2f} GB allocated; card {card_s}")
+    free()
+    return paths, entry
 
 
 def main(argv=None) -> int:
@@ -1584,7 +2281,7 @@ def main(argv=None) -> int:
 
 
 def run(dev, seed: int, card_s: str) -> list:
-    """Phases 2-5 on ``dev``; returns the per-kernel report entries."""
+    """Phases 2-6 on ``dev``; returns the per-kernel report entries."""
     from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
 
     t0 = time.perf_counter()
@@ -1634,10 +2331,22 @@ def run(dev, seed: int, card_s: str) -> list:
     del eng_f32, eng_q8, eng_bf16, bmx, base, csr, meta
     del rows, valbits, pairs, packed
     free()
-    offline = offline_phase(dev, model, index, cindex, cfg, seed, card_s)
-    for path, counts in offline.items():
+    with tempfile.TemporaryDirectory() as tmp:
+        offline = offline_phase(dev, model, index, cindex, cfg, seed, card_s,
+                                tmp)
+        for path, counts in offline.items():
+            log(f"launches over the {path} path: {counts}")
+        paths.update(offline)
+        log("phase 5: the offline path (f32, bf16, q8, text via the hot "
+            "route, gather, block-max, maxscore, the CLI) through the "
+            "kernels")
+        # phase 6 keeps phase 5's CLI cut on disk, not its host corpora
+        del index, cindex
+        dense, entry = dense_phase(dev, model, seed, card_s, tmp)
+    for path, counts in dense.items():
         log(f"launches over the {path} path: {counts}")
-    paths.update(offline)
+    paths.update(dense)
+    report.append(entry)
     for path, kernels in PATH_KERNELS.items():
         missing = [k_ for k_ in kernels if paths[path][k_] == 0]
         check(not missing, f"{missing} not launched on the {path} path: "
@@ -1646,8 +2355,8 @@ def run(dev, seed: int, card_s: str) -> list:
         r["launches"] = sum(p_[r["name"]] for p_ in paths.values())
     check(all(r["launches"] > 0 for r in report),
           f"a kernel was not launched on the main paths: {paths}")
-    log("phase 5: the offline path (f32, bf16, q8, text via the hot route, "
-        "gather, block-max, maxscore, the CLI) through the kernels")
+    log("phase 6: the dense path (bf16 and int8 at 8,841,823 x 2048, "
+        "served, HTTP, text, eval_dense, the server CLI) through B5")
     return report
 
 

@@ -1,0 +1,217 @@
+"""Dense evaluation CLI (port of evaluation/eval_dense.py):
+write_doc_embeds | retrieval | evaluate_msmarco | evaluate_beir, with the
+same flags plus ``--device`` (default "cuda").
+
+  * ``write_doc_embeds`` — corpus encode → ``embs_{rank}_{chunk}.npy``
+    chunks + ``plan.json`` (``index/indexer.store_embs``);
+  * ``retrieval`` — load the chunks into the exact flat inner-product index
+    (``LocalDenseRetriever``) → top-k ``run.json``;
+  * ``evaluate_msmarco`` / ``evaluate_beir`` — ``perf.json``.
+
+``write_doc_embeds`` and ``dense_retrieval`` take the encoder and the
+tokenizer as arguments; from the command line they load them from
+``--model_name_or_path``, which is not ported yet (checkpoint and tokenizer
+loading, ROADMAP A7) and raises ``NotImplementedError``, as ``--use_mesh``
+and ``MeshDenseRetriever`` do (the sharded search, A10).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import json
+import os
+
+import numpy as np
+import torch
+
+from scaling_retriever_tpu_torch import constants
+from scaling_retriever_tpu_torch.data.collators import \
+    LlamaDenseCollectionCollator
+from scaling_retriever_tpu_torch.data.datasets import (
+    BeirDataset, CollectionDataset, MSMARCOQueryDataset, WikiQueryDataset,
+)
+from scaling_retriever_tpu_torch.data.io import load_beir_dataset
+from scaling_retriever_tpu_torch.data.loader import DataLoader
+from scaling_retriever_tpu_torch.data.prefetch import PrefetchLoader
+from scaling_retriever_tpu_torch.evaluation.metrics import (
+    evaluate_beir, load_and_evaluate,
+)
+from scaling_retriever_tpu_torch.index.dense_index import DenseFlatIndexer
+from scaling_retriever_tpu_torch.index.indexer import (
+    obtain_doc_vec_dir_files, store_embs,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model_name_or_path", default=None)
+    p.add_argument("--corpus_path", default="")
+    p.add_argument("--doc_embed_dir", default=None)
+    p.add_argument("--index_dir", default=None)
+    p.add_argument("--out_dir", default=None)
+    p.add_argument("--query_path", default=None)
+    p.add_argument("--data_source", default=None)
+    p.add_argument("--lora_name_or_path", default=None)
+    p.add_argument("--is_beir", action="store_true")
+    p.add_argument("--beir_dataset", default=None)
+    p.add_argument("--beir_dataset_dir", default=None)
+    p.add_argument("--eval_batch_size", type=int, default=128)
+    p.add_argument("--doc_max_length", type=int, default=192)
+    p.add_argument("--query_max_length", type=int, default=64)
+    p.add_argument("--top_k", type=int, default=1000)
+    p.add_argument("--task_name", required=True,
+                   choices=["write_doc_embeds", "retrieval",
+                            "evaluate_msmarco", "evaluate_beir"])
+    p.add_argument("--eval_qrel_path", default="")
+    p.add_argument("--eval_run_path", default="")
+    p.add_argument("--eval_metric", default="",
+                   help="python-list literal, e.g. \"['mrr_10','recall']\"")
+    p.add_argument("--quantize", default="", choices=["", "int8"],
+                   help="retrieval embedding layout: int8 = per-doc codes "
+                        "+ f32 scales (1 B/dim, exact over the codes); the "
+                        "disk artifacts stay f32")
+    p.add_argument("--rank", type=int, default=0)
+    p.add_argument("--world_size", type=int, default=1)
+    p.add_argument("--use_mesh", action="store_true",
+                   help="doc-shard the embedding matrix over all devices")
+    p.add_argument("--device", default="cuda",
+                   help="torch device for encoding and retrieval (cuda, "
+                        "cuda:N or cpu)")
+    return p
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _load_model(args):
+    raise _not_ported("loading a dense encoder from --model_name_or_path "
+                      "(checkpoint loading)", "A7")
+
+
+def _tokenizer(args):
+    raise _not_ported("loading a tokenizer from --model_name_or_path", "A7")
+
+
+def _beir_path(args) -> str:
+    path = os.path.join(args.beir_dataset_dir, args.beir_dataset)
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f"BEIR dataset {args.beir_dataset!r} not found under "
+            f"{args.beir_dataset_dir!r}; download it on a connected machine")
+    return path
+
+
+def write_doc_embeds(args, model=None, tokenizer=None) -> None:
+    """Encode the corpus (``--corpus_path`` or a BEIR corpus) into
+    ``--doc_embed_dir``; ``model`` and ``tokenizer`` default to loading
+    ``--model_name_or_path``."""
+    tokenizer = tokenizer if tokenizer is not None else _tokenizer(args)
+    if args.is_beir and args.beir_dataset:
+        corpus, _, _ = load_beir_dataset(_beir_path(args))
+        d_collection = BeirDataset(corpus, information_type="document")
+    else:
+        source = args.data_source or constants.guess_data_source(
+            args.corpus_path)
+        d_collection = CollectionDataset(args.corpus_path, data_source=source)
+    model = model if model is not None else _load_model(args)
+    collator = LlamaDenseCollectionCollator(tokenizer, args.doc_max_length)
+    loader = DataLoader(d_collection, args.eval_batch_size, collator,
+                        rank=args.rank, world_size=args.world_size)
+    store_embs(model, PrefetchLoader(loader), local_rank=args.rank,
+               out_dir=args.doc_embed_dir, world_size=args.world_size)
+
+
+class LocalDenseRetriever:
+    """Load the npy chunks into the flat index and rank queries."""
+
+    def __init__(self, hidden_dim: int, quantize=None, device="cuda"):
+        self.indexer = DenseFlatIndexer(quantize=quantize, device=device)
+        self.indexer.init_index(hidden_dim)
+
+    def index_encoded_data(self, doc_embed_dir: str) -> None:
+        emb_files, id_files = obtain_doc_vec_dir_files(doc_embed_dir)
+        for emb_f, id_f in zip(emb_files, id_files):
+            vectors = np.asarray(np.load(emb_f), np.float32)
+            ids = np.load(id_f, allow_pickle=True).tolist()
+            self.indexer.add_batch(ids, vectors)
+
+    def get_top_docs(self, query_vectors, top_docs: int):
+        return self.indexer.search_knn(query_vectors, top_docs)
+
+
+class MeshDenseRetriever:
+    """Doc-sharded dense retrieval over several devices."""
+
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("MeshDenseRetriever (the doc-sharded search)",
+                          "A10")
+
+
+def dense_retrieval(args, model=None, tokenizer=None) -> None:
+    """Encode the queries, rank them over ``--doc_embed_dir`` and write
+    ``run.json`` to ``--out_dir``."""
+    if args.use_mesh:
+        raise _not_ported("--use_mesh (the doc-sharded search)", "A10")
+    tokenizer = tokenizer if tokenizer is not None else _tokenizer(args)
+    if args.is_beir and args.beir_dataset:
+        _, queries, _ = load_beir_dataset(_beir_path(args))
+        q_collection = BeirDataset(queries, information_type="query")
+    else:
+        source = args.data_source or constants.guess_data_source(
+            args.query_path)
+        q_collection = (WikiQueryDataset(args.query_path) if source == "wiki"
+                        else MSMARCOQueryDataset(args.query_path))
+    model = model if model is not None else _load_model(args)
+    collator = LlamaDenseCollectionCollator(tokenizer, args.query_max_length)
+    loader = DataLoader(q_collection, args.eval_batch_size, collator)
+
+    retriever = LocalDenseRetriever(model.hidden_size,
+                                    quantize=args.quantize or None,
+                                    device=args.device)
+    retriever.index_encoded_data(args.doc_embed_dir)
+
+    qids, reps = [], []
+    for batch in loader:
+        reps.append(torch.as_tensor(model.encode(batch["input_ids"],
+                                                 batch["attention_mask"]))
+                    .float().cpu().numpy())
+        qids.extend(batch["ids"])
+    q_vecs = (np.concatenate(reps) if reps
+              else np.zeros((0, model.hidden_size), np.float32))
+    results = retriever.get_top_docs(q_vecs, args.top_k) if qids else []
+    run = {str(qid): dict(zip(map(str, db_ids), scores))
+           for qid, (db_ids, scores) in zip(qids, results)}
+    os.makedirs(args.out_dir, exist_ok=True)
+    with open(os.path.join(args.out_dir, "run.json"), "w") as f:
+        json.dump(run, f)
+
+
+def evaluate_msmarco(args) -> None:
+    metrics_list = (ast.literal_eval(args.eval_metric) if args.eval_metric
+                    else ["mrr_10"])
+    res = {}
+    for metric in metrics_list:
+        res[metric] = load_and_evaluate(args.eval_qrel_path,
+                                        args.eval_run_path, metric)
+    os.makedirs(args.out_dir, exist_ok=True)
+    with open(os.path.join(args.out_dir, "perf.json"), "w") as f:
+        json.dump(res, f, indent=4)
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.task_name == "write_doc_embeds":
+        write_doc_embeds(args)
+    elif args.task_name == "retrieval":
+        dense_retrieval(args)
+    elif args.task_name == "evaluate_msmarco":
+        evaluate_msmarco(args)
+    elif args.task_name == "evaluate_beir":
+        _, _, qrels = load_beir_dataset(_beir_path(args))
+        evaluate_beir(args.out_dir, qrels)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,10 +14,12 @@ the reference's ``run.json`` ({qid: {doc_id: score}}) and
   * "maxscore" — impact-ordered pruning with an exact rescore and a
                  certified fallback (ops/maxscore.py);
   * "bmx"      — block-max doc-range pruning for clustered corpora
-                 (ops/blockmax.py), run through the staged pipeline.
+                 (ops/blockmax.py), run through the staged pipeline;
+  * "cpp"      — the host C++ CSR engine (index/cpp_engine.py), all
+                 queries in one call.
 
-"cpp" (the native host engine) waits for ROADMAP A5 and ``mesh=`` (the
-sharded engines) for A10: both raise ``NotImplementedError``.
+``mesh=`` (the sharded engines) waits for ROADMAP A10 and raises
+``NotImplementedError``.
 
 The driver keeps the reference's schedule: the stream is sorted by
 estimated cost (matched postings), packed into (width, job bucket) tiles,
@@ -143,9 +145,11 @@ class SparseRetrieval:
                                                   block, value_dtype)
             force_materialized(self.terms, self.vals)
         elif engine == "cpp":
-            raise NotImplementedError(
-                "engine 'cpp' (the native host engine) is not ported yet "
-                "(ROADMAP A5)")
+            from scaling_retriever_tpu_torch.index.cpp_engine import \
+                CppSparseEngine
+
+            self._cpp = CppSparseEngine(self.index)
+            self.n_docs = self.index.nb_docs()
         else:
             raise ValueError(engine)
         # disk load + host prep + device upload, completed (engines
@@ -393,6 +397,12 @@ class SparseRetrieval:
                 if hot_idx.size:
                     self._retrieve_hot(hot_idx, q_dense, q_sparse, topk, acc)
                 stats["hot_queries"] = int(hot_idx.size)
+        elif self.engine == "cpp":
+            if q_dense is None:
+                q_dense = self._densify(q_sparse)
+            rows_k, scores_k = self._cpp.retrieve(q_dense, topk, threshold)
+            # the C++ engine applied the threshold itself and pads with -1
+            acc.add_tile(np.arange(nq), rows_k, scores_k, valid=rows_k >= 0)
         else:
             tile = self.query_tile
             if q_dense is None:

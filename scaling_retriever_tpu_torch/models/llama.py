@@ -210,6 +210,9 @@ class LlamaBiForMNTP(nn.Module):
                        lora: Optional[dict] = None,
                        lora_scale: float = 0.0) -> torch.Tensor:
         """LM-head logits [B, S, V]."""
+        if self.lm_head is None and not self.config.tie_word_embeddings:
+            raise ValueError("this model carries no LM head (untied "
+                             "embeddings, weights without an lm_head)")
         h = self.forward_hidden(input_ids, attention_mask, lora, lora_scale)
         if self.lm_head is None:
             return F.linear(h, self.embed_tokens.weight.to(h.dtype))

@@ -35,7 +35,10 @@ def params_from_jax(tree: dict, config: ModelConfig,
     """``tree``: nested dict of numpy arrays in the JAX ``init_params``
     layout → the port's module on ``device``. Tied embeddings follow
     ``config.tie_word_embeddings`` (an ``lm_head`` in the tree is then
-    unused, as in the reference's ``forward_logits``)."""
+    unused, as in the reference's ``forward_logits``). A tree without an
+    ``lm_head`` under untied embeddings (a dense encoder's weights) gives a
+    module without one: ``forward_hidden`` runs, ``forward_logits``
+    raises."""
     model = _empty_model(config, device)
 
     def put(dst: torch.Tensor, src) -> None:
@@ -53,7 +56,10 @@ def params_from_jax(tree: dict, config: ModelConfig,
         put(layer.input_norm, layers["input_norm"][i])
         put(layer.post_attn_norm, layers["post_attn_norm"][i])
     if model.lm_head is not None:
-        put(model.lm_head.weight, np.asarray(tree["lm_head"]).T)
+        if "lm_head" in tree:
+            put(model.lm_head.weight, np.asarray(tree["lm_head"]).T)
+        else:
+            model.lm_head = None
     return model
 
 

@@ -48,9 +48,10 @@ SIGNATURES = {
     "srt_topm_rounds": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
 }
 
-# fetch_f32_blockmax counts B1's second call site (ops/blockmax.py)
+# fetch_f32_blockmax counts B1's second call site (ops/blockmax.py),
+# topm_dense B5's dense call site (index/dense_index.py)
 LAUNCHES = {"fetch_f32": 0, "fetch_f32_blockmax": 0, "fetch_q8": 0,
-            "fetch_bf16": 0, "segsum": 0, "topm": 0}
+            "fetch_bf16": 0, "segsum": 0, "topm": 0, "topm_dense": 0}
 
 _lock = threading.Lock()
 _lib = None

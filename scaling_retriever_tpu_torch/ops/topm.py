@@ -50,12 +50,14 @@ def check_kernel_shape(nq: int, nblk: int, block: int) -> None:
                          f"{nblk} blocks)")
 
 
-def block_topm(s: torch.Tensor, m: int, block: int):
+def block_topm(s: torch.Tensor, m: int, block: int, site: str = "topm"):
     """Top-``m`` of every ``block`` lanes of ``s`` [nq, n] f32 → (vals
     [nq, n/block, m] descending, idxs [nq, n/block, m] block-local int32);
     kernel B5 on CUDA (block a multiple of 128 in [128, 16384], 1 <= m <=
     min(128, block), nq * n/block < 2^31). A -0.0 the kernel keeps comes
-    out as +0.0 (equal under ==, as the reference compares)."""
+    out as +0.0 (equal under ==, as the reference compares). ``site`` is
+    the launch counter: "topm" for the sparse engines, "topm_dense" for the
+    dense index (index/dense_index.py)."""
     nq, n = s.shape
     nblk = n // block
     if nblk * block != n or not 1 <= m <= min(128, block):
@@ -71,6 +73,6 @@ def block_topm(s: torch.Tensor, m: int, block: int):
     vals = torch.empty(nq, nblk, m, dtype=torch.float32, device=dev)
     idxs = torch.empty(nq, nblk, m, dtype=torch.int32, device=dev)
     if nq and nblk:
-        cuda_lib.launch("topm", "srt_topm", dev, s.data_ptr(),
+        cuda_lib.launch(site, "srt_topm", dev, s.data_ptr(),
                         vals.data_ptr(), idxs.data_ptr(), nq, nblk, block, m)
     return vals, idxs

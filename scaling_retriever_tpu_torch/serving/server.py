@@ -1,6 +1,12 @@
 """Resident retrieval serving: request queue → micro-batched device tiles
-(port of serving/server.py: ``SparseTileBackend`` and ``RetrievalServer``;
-the HTTP facade, the CLI and the dense backend are not ported yet).
+(port of serving/server.py: ``SparseTileBackend``, ``DenseTileBackend``,
+``RetrievalServer``, the stdlib HTTP facade ``serve_http`` and the CLI).
+
+    python -m scaling_retriever_tpu_torch.serving.server --index_dir IDX
+    python -m scaling_retriever_tpu_torch.serving.server --dense_index_dir D
+
+Raw-text queries (``--model_name_or_path``) wait for checkpoint and
+tokenizer loading (ROADMAP A7) and raise.
 
 The server owns a warmed engine, accepts concurrent single-query requests,
 coalesces them into tiles of a fixed width ladder, and overlaps tile
@@ -26,6 +32,7 @@ dispatch with result drain:
 
 from __future__ import annotations
 
+import json
 import queue
 import threading
 import time
@@ -161,11 +168,57 @@ class SparseTileBackend:
         return out
 
 
+class DenseTileBackend:
+    """Adapts a ``DenseFlatIndexer`` (or any ``search_knn``-style object).
+    Each micro-batch is padded to the smallest rung of the width ladder
+    with COPIES of its first query, never zeros: a zero row fails the
+    block-selection certificate (tau = max_bm = 0) and would send every
+    ragged tile through the exact rerun. Pad rows are sliced off in
+    ``drain``."""
+
+    def __init__(self, indexer, width: int = 64, topk: int = 1000,
+                 widths: Optional[Sequence[int]] = None):
+        self.indexer = indexer
+        self.widths = tuple(sorted(widths)) if widths else (8, width)
+        self.width = self.widths[-1]
+        self.topk = topk
+        self.t_budget = None
+
+    def pack(self, reqs: list) -> np.ndarray:
+        q = np.stack([np.asarray(r, np.float32) for r in reqs])
+        rung = next((w for w in self.widths if w >= len(reqs)), self.width)
+        if rung > len(reqs):
+            q = np.concatenate(
+                [q, np.broadcast_to(q[0], (rung - len(reqs), q.shape[1]))])
+        return q
+
+    def dispatch(self, reqs: list):
+        """Asynchronous dispatch (``DenseFlatIndexer.dispatch_tile``, no
+        host read), so the broker overlaps tile i+1's products with tile
+        i's drain; an object with only ``search_knn`` runs in drain."""
+        disp = getattr(self.indexer, "dispatch_tile", None)
+        if disp is None:
+            return ("sync", self.pack(reqs))
+        k = min(self.topk, getattr(self.indexer, "ntotal", self.topk))
+        return ("async", disp(self.pack(reqs), k))
+
+    def drain(self, payload, reqs: list) -> list:
+        kind, data = payload
+        if kind == "async":
+            scores, rows = self.indexer.drain_tile(data, len(reqs))
+            hits = self.indexer.tile_results(scores, rows, len(reqs))
+        else:
+            hits = self.indexer.search_knn(data, self.topk)[:len(reqs)]
+        return [(ids, list(map(float, sc))) for ids, sc in hits]
+
+
 _STOP = object()
 
 
 class ServerOverloadedError(RuntimeError):
-    """A lane's bounded queue is full and the caller asked not to wait."""
+    """A lane's bounded queue is full and the caller asked not to wait
+    (``submit(timeout=...)`` elapsed, or the hot lane's in-flight cap is
+    reached). The HTTP facade maps this to 429."""
 
 
 class RetrievalServer:
@@ -275,7 +328,8 @@ class RetrievalServer:
 
     def submit(self, query, topk: Optional[int] = None,
                timeout: Optional[float] = None) -> Future:
-        """query: (terms, vals). topk above the backend's k is rejected;
+        """query: (terms, vals) for sparse backends, a vector for dense
+        ones. topk above the backend's k is rejected;
         a smaller topk is a slice of the result. Raises on a server not
         started and on requests the backend rejects, so only the offending
         caller errors. ``timeout`` bounds how long submit may block for
@@ -560,3 +614,231 @@ class RetrievalServer:
                 self._resolve(pending.pop(0))
         for p in pending:
             self._resolve(p)
+
+
+# ---------------------------------------------------------------------------
+# stdlib HTTP front-end
+
+
+def serve_http(server: RetrievalServer, host: str = "127.0.0.1",
+               port: int = 8080, block: bool = True, frontend=None,
+               submit_timeout_s: Optional[float] = 5.0):
+    """JSON-over-HTTP facade. POST /search body:
+    ``{"queries": [{"id": "q1", "terms": [...], "vals": [...]}, ...],
+       "topk": 10}``
+    (dense backends: ``{"id": ..., "vector": [...]}``; with a
+    ``frontend``, a started QueryEncoderFrontend, raw-text queries
+    ``{"id": ..., "text": "..."}`` are encoded first) →
+    ``{"results": {"q1": {"d3": 12.5, ...}}}``, the run.json entry shape.
+    GET /stats and GET /healthz for operators.
+
+    ``submit_timeout_s`` bounds how long a request may wait for queue space
+    before the facade sheds it as HTTP 429 (hot-lane capacity sheds 429 at
+    once); None waits without bound. ``block=False`` returns the server
+    unstarted (``serve_forever`` on a thread of the caller's)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _send(self, code: int, obj: dict) -> None:
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, {"ok": True})
+            elif self.path == "/stats":
+                stats = server.stats()
+                if frontend is not None:
+                    stats["encode"] = frontend.stats()
+                self._send(200, stats)
+            else:
+                self._send(404, {"error": "not found"})
+
+        def do_POST(self):
+            if self.path != "/search":
+                self._send(404, {"error": "not found"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n))
+                topk = req.get("topk")
+                futs = []
+                for q in req["queries"]:
+                    if "text" in q:
+                        if frontend is None:
+                            raise ValueError("text queries need an encoder "
+                                             "frontend (none configured)")
+                        fut = frontend.submit_text(q["text"], topk)
+                    elif "vector" in q:
+                        fut = server.submit(
+                            np.asarray(q["vector"], np.float32), topk,
+                            timeout=submit_timeout_s)
+                    else:
+                        fut = server.submit(
+                            (np.asarray(q["terms"], np.int32),
+                             np.asarray(q["vals"], np.float32)), topk,
+                            timeout=submit_timeout_s)
+                    futs.append((str(q.get("id", len(futs))), fut))
+                results = {}
+                for qid, f in futs:
+                    ids, scores = f.result()
+                    results[qid] = dict(zip(map(str, ids), scores))
+                self._send(200, {"results": results})
+            except ServerOverloadedError as e:
+                # load balancers retry or shed on 429; a submit blocked
+                # forever would hold the connection and hide the overload
+                self._send(429, {"error": f"overloaded: {e}",
+                                 "retry_after_s": 1})
+            except Exception as e:  # a bad request answers 400, serving goes on
+                self._send(400, {"error": f"{type(e).__name__}: {e}"})
+
+    httpd = ThreadingHTTPServer((host, port), Handler)
+    if block:
+        httpd.serve_forever()
+    return httpd
+
+
+# ---------------------------------------------------------------------------
+# CLI: python -m scaling_retriever_tpu_torch.serving.server --index_dir ...
+
+
+def build_parser():
+    import argparse
+
+    ap = argparse.ArgumentParser(description="resident retrieval server")
+    ap.add_argument("--index_dir", default=None,
+                    help="sparse inverted-index directory")
+    ap.add_argument("--dense_index_dir", default=None,
+                    help="serialized DenseFlatIndexer directory "
+                         "(index_srt.npz): serves dense vector queries")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--topk", type=int, default=1000)
+    ap.add_argument("--width", type=int, default=64)
+    ap.add_argument("--widths", default=None,
+                    help="comma-separated width ladder (e.g. 8,64): "
+                         "isolated requests ride the narrow rung")
+    ap.add_argument("--max_wait_ms", type=float, default=2.0)
+    ap.add_argument("--max_collect_ms", type=float, default=None,
+                    help="burst-collection cap: each arrival extends the "
+                         "collect window by one max_wait_ms quiet gap up "
+                         "to this total. Unset = one fixed window")
+    ap.add_argument("--pipeline_depth", type=int, default=2,
+                    help="tiles dispatched ahead of the oldest drain")
+    ap.add_argument("--reorder_horizon", type=int, default=4,
+                    help="cost-scheduler candidate pool = horizon x width; "
+                         "1 for strict latency limits")
+    ap.add_argument("--hot_lane", choices=("none", "cpp"), default="cpp",
+                    help="slow lane for over-budget queries: 'cpp' scores "
+                         "them on the host C++ engine over the same CSR; "
+                         "'none' rejects them")
+    ap.add_argument("--max_need_jobs", type=int, default=8192,
+                    help="job budget above which a query leaves the device "
+                         "lane (~1024 matched postings per job)")
+    ap.add_argument("--warmup_queries", default=None,
+                    help="npz with q_terms/q_vals (sparse) or reps (dense) "
+                         "arrays, run through every width rung before "
+                         "serving")
+    ap.add_argument("--model_name_or_path", default=None,
+                    help="sparse encoder checkpoint for raw-text queries "
+                         "(not ported yet: raises; the text frontend's "
+                         "flags come with it)")
+    ap.add_argument("--dense_quantize", choices=("none", "int8"),
+                    default="none",
+                    help="dense layout: int8 = per-doc symmetric codes + "
+                         "f32 scales (1 B/dim, exact over the codes); the "
+                         "on-disk index stays f32")
+    ap.add_argument("--val_dtype", choices=("f32", "bf16", "q8"),
+                    default="f32",
+                    help="sparse posting layout: f32 (8 B), bf16 pairs "
+                         "(6 B) or q8 (row24|code8) words (4 B)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the index and engine (cuda, "
+                         "cuda:N or cpu)")
+    return ap
+
+
+def main(argv=None) -> None:
+    import sys
+
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if (args.index_dir is None) == (args.dense_index_dir is None):
+        ap.error("exactly one of --index_dir / --dense_index_dir is required")
+    if args.model_name_or_path:
+        raise NotImplementedError(
+            "text queries (--model_name_or_path: the sparse encoder's "
+            "checkpoint and tokenizer loading) are not ported yet (ROADMAP "
+            "A7)")
+
+    t0 = time.perf_counter()
+    widths = ([int(w) for w in args.widths.split(",")]
+              if args.widths else None)
+    if args.index_dir:
+        from scaling_retriever_tpu_torch.index.inverted_index import \
+            SparseIndex
+        from scaling_retriever_tpu_torch.ops.segsort_scoring import \
+            SegsortEngine
+
+        index = SparseIndex.load(args.index_dir)
+        engine = SegsortEngine(index, topk=args.topk,
+                               val_dtype=args.val_dtype, device=args.device)
+        hot_lane = None
+        if args.hot_lane == "cpp":
+            from scaling_retriever_tpu_torch.index.cpp_engine import \
+                CppSparseEngine
+
+            # shares the host CSR the index was loaded into
+            hot_lane = CppSparseEngine(index, n_threads=1)
+        backend = SparseTileBackend(engine, index.doc_ids, index.nb_docs(),
+                                    width=args.width, widths=widths,
+                                    topk=args.topk, hot_lane=hot_lane,
+                                    max_need_jobs=args.max_need_jobs)
+    else:
+        from scaling_retriever_tpu_torch.index.dense_index import \
+            DenseFlatIndexer
+
+        indexer = DenseFlatIndexer(
+            quantize=None if args.dense_quantize == "none"
+            else args.dense_quantize, device=args.device)
+        indexer.deserialize(args.dense_index_dir)
+        backend = DenseTileBackend(indexer, width=args.width,
+                                   topk=args.topk, widths=widths)
+    server = RetrievalServer(backend, max_wait_ms=args.max_wait_ms,
+                             reorder_horizon=args.reorder_horizon,
+                             pipeline_depth=args.pipeline_depth,
+                             max_collect_ms=args.max_collect_ms)
+    print(f"index + engine resident in {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr)
+    if args.warmup_queries:
+        z = np.load(args.warmup_queries)
+        if "reps" in z:
+            qs = list(z["reps"])
+        else:
+            qs = [(z["q_terms"][i], z["q_vals"][i])
+                  for i in range(len(z["q_terms"]))]
+        print(f"warmup: {server.warmup(qs)}", file=sys.stderr)
+    server.start()
+    try:
+        # bound before the line is printed: with --port 0 the line names
+        # the port the system picked
+        httpd = serve_http(server, args.host, args.port, block=False)
+        print(f"serving on http://{args.host}:{httpd.server_address[1]}",
+              file=sys.stderr, flush=True)
+        try:
+            httpd.serve_forever()
+        finally:
+            httpd.server_close()
+    finally:
+        server.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -61,3 +61,14 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_dense_slice_modules_are_scanned():
+    """The dense path, the server CLI and the C++ engine's binding are among
+    the files the two checks above cover."""
+    files = {os.path.relpath(p, PKG) for p in _port_files()
+             if p.startswith(PKG)}
+    for mod in ("index/dense_index.py", "index/indexer.py",
+                "index/cpp_engine.py", "data/prefetch.py",
+                "evaluation/eval_dense.py", "serving/server.py"):
+        assert mod in files, mod

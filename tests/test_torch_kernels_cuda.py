@@ -262,3 +262,87 @@ def test_segsort_kernels_match_plain_path(cuda):
             fin = np.isfinite(s0[q])
             tie_equal_topk(r0[q][fin], s0[q][fin], r1[q][fin], s1[q][fin],
                            rtol=1e-6)
+
+
+def test_topm_kernel_at_a_dense_like_slab(cuda):
+    """B5 on an f32-output product of bf16 unit vectors with a zero tail
+    (the padding rows of a dense index's last chunk): bit-equal to the
+    plain loop, tied zero blocks return lanes 0..m-1."""
+    from scaling_retriever_tpu_torch.index import dense_index as di
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    docs = torch.randn(4 * 4096, 256, device=cuda, generator=g)
+    docs = torch.nn.functional.normalize(docs, dim=1).bfloat16()
+    docs[-5000:] = 0                       # blocks 3 and part of 2: zeros
+    q = torch.nn.functional.normalize(
+        torch.randn(32, 256, device=cuda, generator=g), dim=1).bfloat16()
+    s = di._score_slab(q, docs, None, None)
+    assert s.dtype == torch.float32
+    before = cuda_lib.LAUNCHES["topm"]
+    v, i = topm.block_topm(s, 32, 4096)
+    pv, pi = topm.block_topm_plain(s, 32, 4096)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["topm"] == before + 1
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    lanes = torch.arange(32, device=cuda, dtype=torch.int32)
+    assert bool((i[:, 3] == lanes).all()) and bool((v[:, 3] == 0).all())
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["bf16", "int8"])
+def test_dense_search_on_card_matches_cpu(cuda, quantize):
+    """DenseFlatIndexer on the card (B5 in the blocked path, the f32-output
+    bf16 product or the int8 product with an 8-row tile padded for it)
+    against the same index on the CPU: dyadic data, so scores bit-equal
+    and rows tie-equal."""
+    from scaling_retriever_tpu_torch.index.dense_index import \
+        DenseFlatIndexer
+
+    rng = np.random.default_rng(10)
+    n, d, k = 3 * 8192 - 100, 64, 50
+    docs = (rng.integers(-16, 17, (n, d)) / 16.0).astype(np.float32)
+    q = (rng.integers(-16, 17, (40, d)) / 16.0).astype(np.float32)
+    kw = dict(chunk=8192, sel_block=1024, block_m=16, query_tile=32,
+              quantize=quantize)
+    gpu = DenseFlatIndexer(device=cuda, **kw)
+    cpu = DenseFlatIndexer(device="cpu", **kw)
+    for ix in (gpu, cpu):
+        ix.init_index(d)
+        ix.add_batch(range(n), docs)
+    assert gpu._topm() == "pallas" and cpu._topm() == "xla"
+    before = cuda_lib.LAUNCHES["topm_dense"]
+    for nq in (40, 8):
+        got = gpu.search_knn(q[:nq], k)
+        want = cpu.search_knn(q[:nq], k)
+        for (gi, gs), (wi, ws) in zip(got, want):
+            assert np.asarray(gs, np.float32).tobytes() == \
+                np.asarray(ws, np.float32).tobytes()
+            tie_equal_topk(gi, gs, wi, ws, rtol=0.0)
+    # one launch per chunk of each blocked tile (tiles of 32 + 8, then 8);
+    # a rerun of an uncertified tile takes the direct path, without B5
+    assert cuda_lib.LAUNCHES["topm_dense"] == before + 3 * 3
+
+
+def test_dense_layout_from_host_store_on_card(cuda, monkeypatch):
+    """Numpy rows stay in a host store; the bf16 and int8 layouts built on
+    the card through the two pinned buffers (three copies per chunk, the
+    last one short) equal the CPU's bit for bit."""
+    from scaling_retriever_tpu_torch.index import dense_index
+
+    monkeypatch.setattr(dense_index, "MOVE_ROWS", 1000)
+    rng = np.random.default_rng(11)
+    v = rng.standard_normal((5000, 64)).astype(np.float32)
+    for quantize in (None, "int8"):
+        gpu = dense_index.DenseFlatIndexer(device=cuda, chunk=2048,
+                                           quantize=quantize)
+        cpu = dense_index.DenseFlatIndexer(device="cpu", chunk=2048,
+                                           quantize=quantize)
+        for ix in (gpu, cpu):
+            ix.init_index(64)
+            ix.add_batch(range(5000), v)
+        assert {b.device.type for b in gpu._store} == {"cpu"}
+        got, want = gpu._materialize(), cpu._materialize()
+        assert all(g.device.type == "cuda" and torch.equal(g.cpu(), w)
+                   for g, w in zip(got, want))
+        if quantize:
+            assert all(torch.equal(g.cpu(), w) for g, w
+                       in zip(gpu._layout[2], cpu._layout[2]))

@@ -156,8 +156,19 @@ def test_write_run_false_and_engine_choice(setup, tmp_path):
         want = ref.resolve_engine(engine, "cpu" if backend == "cpu" else "tpu")
         assert port.resolve_engine(engine, backend) == want
     assert port.resolve_engine("auto") == "segsort"
-    with pytest.raises(NotImplementedError, match="A5"):
-        port.SparseRetrieval(model, index_dir, engine="cpp", device="cpu")
+    # engine "cpp" (the host C++ engine) gives the segsort engine's run,
+    # tie-equal at rtol 0 (the reps are multiples of 0.5: exact sums)
+    runs = {}
+    for engine in ("cpp", "segsort"):
+        runs[engine], st = port.SparseRetrieval(
+            model, index_dir, topk=10, engine=engine,
+            device="cpu").retrieve(q_batches)
+    assert st["L0_q"] > 0 and len(runs["cpp"]) == len(runs["segsort"]) == 23
+    for qid, want in runs["segsort"].items():
+        w = sorted(want.items(), key=lambda kv: -kv[1])
+        g = sorted(runs["cpp"][qid].items(), key=lambda kv: -kv[1])
+        tie_equal_topk([d for d, _ in w], [s for _, s in w],
+                       [d for d, _ in g], [s for _, s in g], rtol=0.0)
     with pytest.raises(NotImplementedError, match="A10"):
         port.SparseRetrieval(model, index_dir, mesh=object(), device="cpu")
 
