@@ -59,7 +59,23 @@ Phases (any failure raises and exits non-zero):
      store stays on the host, the card holds only the bf16 and then the
      int8 layout, and a tile answers as the card-built index did; launch
      counts read as in 4;
-  7. print the card, per-kernel numbers as one JSON line, and last
+  7. the offline pipeline from a checkpoint on disk: phase 4's encoder
+     written with save_pretrained (2.47 GB bf16 safetensors) and read back
+     with load_pretrained, bit-equal; an r 16 adapter written with
+     save_adapter, loaded with load_from_lora and merged (merged reps ==
+     unmerged within a stated bf16 tolerance; the merge's source object
+     encodes as the merged one); eval_sparse's indexing body over 16,384
+     generated docs at doc_max_length 192 (the model's reps kept to their
+     top 128 per doc on the card), through the packed top-1024 read and
+     the full read (bit-equal indexes), and one batch of the unwrapped
+     model through the fallback (== its full read); encode_queries,
+     retrieval from the reps file and from text (1,024 doc-prefix
+     queries) into run.json through B1, B4 and B5 (launches read as in
+     4; == the plain-ops engine), evaluate_msmarco; SparseIndex's host CSR
+     build at 1/8 of MSMARCO's depth (141M postings); a 4-chunk dense
+     index streamed to disk by serialize (host memory growth under two
+     chunks) and read back (a tile bit-equal);
+  8. print the card, per-kernel numbers as one JSON line, and last
      {"ok": true, "device": {...}}.
 """
 
@@ -106,6 +122,7 @@ PATH_KERNELS = {
     "dense bf16": ("topm_dense",),
     "dense int8": ("topm_dense",),
     "served dense": ("topm_dense",),
+    "checkpoint pipeline": ("fetch_f32", "segsum", "topm"),
 }
 
 
@@ -1590,13 +1607,14 @@ CLI_Q = 16
 BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16
 
 
-def corpus_chunks(dev, seed: int):
-    """N_DOCS L2-normalized DENSE_DIM-wide rows made on the card by chunks
-    from a seeded generator and rounded to bf16, so that their f32 widening
-    equals the bf16 layout: yields (first row, bf16 [n, DENSE_DIM])."""
+def corpus_chunks(dev, seed: int, n_rows: int = N_DOCS):
+    """``n_rows`` L2-normalized DENSE_DIM-wide rows made on the card by
+    chunks from a seeded generator and rounded to bf16, so that their f32
+    widening equals the bf16 layout: yields (first row, bf16 [n,
+    DENSE_DIM])."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    for s0 in range(0, N_DOCS, DENSE_CHUNK):
-        n = min(DENSE_CHUNK, N_DOCS - s0)
+    for s0 in range(0, n_rows, DENSE_CHUNK):
+        n = min(DENSE_CHUNK, n_rows - s0)
         v = torch.randn(n, DENSE_DIM, generator=g, device=dev)
         yield s0, torch.nn.functional.normalize(v, dim=1).bfloat16()
 
@@ -2253,6 +2271,399 @@ def dense_phase(dev, model, seed: int, card_s: str, tmp: str):
     return paths, entry
 
 
+# ---- phase 7: the offline pipeline from a checkpoint on disk
+
+CKPT_DOCS = 16_384            # docs indexed through eval_sparse's body
+CKPT_DOC_LEN = 192            # doc_max_length
+CKPT_L0_D = 128               # postings kept per doc (MSMARCO's 1.13B / 8.8M)
+CKPT_T = 1024                 # --index_sparsify_t of the packed read
+CKPT_QUERIES = 1_024
+CKPT_QUERY_WORDS = 16         # a query is the first words of its doc
+CSR_DOCS = 1_105_228          # 1/8 of MSMARCO's 8,841,823 docs
+C3_CHUNKS = 4                 # dense chunks serialized (1,048,576 x 2048)
+LORA_R, LORA_ALPHA = 16, 32
+# merged vs unmerged reps, relative L2: folding the delta in rounds each
+# of the 112 projection matrices to bf16 once more (2^-9 relative), which
+# adds up over the layers as a random walk to ~sqrt(112) * 2^-9 = 0.02
+MERGE_RTOL = 0.05
+
+
+class TopKReps:
+    """An encoder that keeps each rep's top ``k`` entries on the device:
+    random weights give reps about half dense, which no trained model
+    gives; ``k`` sets the postings per doc (or terms per query)."""
+
+    def __init__(self, model, k: int):
+        self.model = model
+        self.k = k
+        self.vocab_size = model.vocab_size
+
+    def encode(self, input_ids, attention_mask) -> torch.Tensor:
+        reps = self.model.encode(input_ids, attention_mask)
+        vals, terms = torch.topk(reps, self.k, dim=1)
+        return torch.zeros_like(reps).scatter_(1, terms, vals)
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def rss_bytes() -> int:
+    """This process's resident memory now."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise KeyError("VmRSS")
+
+
+def rss_growth(fn) -> tuple:
+    """(fn(), the most the resident memory grew while it ran), sampled
+    every 20 ms on a thread."""
+    import threading
+
+    base = rss_bytes()
+    peak = [base]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.02):
+            peak[0] = max(peak[0], rss_bytes())
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        th.join(timeout=5)
+    return out, max(peak[0], rss_bytes()) - base
+
+
+def same_index(a, b, label: str) -> None:
+    check(np.array_equal(a.offsets, b.offsets)
+          and np.array_equal(a.doc_rows, b.doc_rows)
+          and a.values.tobytes() == b.values.tobytes()
+          and a.doc_ids == b.doc_ids and a.dim == b.dim,
+          f"{label}: the indexes differ")
+
+
+def checkpoint_phase(dev, model, seed: int, card_s: str, tmp: str) -> dict:
+    """Phase 7: the offline pipeline from a checkpoint on disk: the
+    Llama-3.2-1B architecture written and read back, an adapter merged,
+    eval_sparse's indexing body over generated docs (packed read, full
+    read, fallback), encode_queries and retrieval (from reps and from
+    text) into run.json through B1, B4 and B5, evaluate_msmarco, the host
+    CSR build at 1/8 of MSMARCO's depth, and a dense index streamed to
+    disk and back. Returns the launch counts of the retrieval path."""
+    from scaling_retriever_tpu_torch.evaluation import eval_sparse, metrics
+    from scaling_retriever_tpu_torch.index.dense_index import \
+        DenseFlatIndexer
+    from scaling_retriever_tpu_torch.index.inverted_index import SparseIndex
+    from scaling_retriever_tpu_torch.models import lora as lora_io
+    from scaling_retriever_tpu_torch.models.encoder import LlamaBiSparse
+    from scaling_retriever_tpu_torch.models.hf_loader import (
+        load_pretrained, save_pretrained)
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+    from scaling_retriever_tpu_torch.ops import segsort_scoring as ss
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def lap(step: str) -> None:
+        log(f"phase 7 at {time.perf_counter() - t_phase:.1f} s: {step}")
+    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    rng = np.random.default_rng(seed + 7)
+    tok = StandInTokenizer(VOCAB)
+
+    # ---- 1. the checkpoint round trip at Llama-3.2-1B width ----
+    lap("checkpoint round trip")
+    ckpt = os.path.join(tmp, "ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_pretrained(model.params, model.config, ckpt)
+    save_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(ckpt, f))
+               for f in os.listdir(ckpt))
+    t0 = time.perf_counter()
+    loaded, cfg = load_pretrained(ckpt, device=dev, **bf16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    src = dict(model.params.named_parameters())
+    got = dict(loaded.named_parameters())
+    check(src.keys() == got.keys() and all(
+        got[k].dtype == src[k].dtype and torch.equal(got[k], src[k])
+        for k in src), "the loaded parameters differ from those written")
+    check(cfg.to_hf_config() == model.config.to_hf_config(),
+          "the loaded config differs")
+    log(f"checkpoint: Llama-3.2-1B architecture, {len(src)} tensors, "
+        f"{size / 1e9:.2f} GB bf16 (model.safetensors + config.json); "
+        f"save_pretrained {save_s:.2f} s ({size / save_s / 1e9:.2f} GB/s), "
+        f"load_pretrained onto the card {load_s:.2f} s ({size / load_s / 1e9:.2f}"
+        f" GB/s); every parameter bit-equal; card {card_s}")
+    del loaded, got
+
+    # ---- 2. an adapter over the checkpoint, merged ----
+    lap("adapter")
+    lcfg = lora_io.LoraConfig(r=LORA_R, lora_alpha=LORA_ALPHA,
+                              base_model_name_or_path=ckpt)
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    lora = lora_io.init_lora_params(model.config, lcfg, g, device=dev)
+    for group in lora["layers"].values():
+        for fac in group.values():
+            fac["b"].copy_(torch.randn(fac["b"].shape, generator=g,
+                                       device=dev) * 0.01)
+    adapter = os.path.join(tmp, "adapter")
+    lora_io.save_adapter(lora, lcfg, adapter)
+    del lora
+    t0 = time.perf_counter()
+    unmerged = LlamaBiSparse.load_from_lora(adapter, merge_peft=False,
+                                            device=dev, **bf16)
+    torch.cuda.synchronize()
+    lora_s = time.perf_counter() - t0
+    probe = [" ".join(f"w{x}" for x in rng.integers(0, VOCAB, 48))
+             for _ in range(TILE)]
+    ids, mask = tok(probe, length=64)
+    base_reps = model.encode(ids, mask)
+    before = unmerged.encode(ids, mask)
+    t0 = time.perf_counter()
+    merged = unmerged.merge_and_unload()
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    after = merged.encode(ids, mask)
+    again = unmerged.encode(ids, mask)
+    d_adapter, d_merge = rel_l2(before, base_reps), rel_l2(after, before)
+    d_source = rel_l2(again, after)
+    check(d_merge <= MERGE_RTOL, f"merged reps differ from the unmerged "
+          f"model's by {d_merge:.4f} (relative L2) > {MERGE_RTOL}")
+    check(d_adapter >= 4 * d_merge, f"the adapter moves the reps by only "
+          f"{d_adapter:.4f} against a merge error of {d_merge:.4f}")
+    check(unmerged.lora is None and d_source <= MERGE_RTOL / 10,
+          f"the merge's source encodes {d_source:.4f} away from the merged "
+          f"model")
+    log(f"adapter: r {LORA_R}, alpha {LORA_ALPHA} over the 7 projections "
+        f"(B ~ N(0, 0.01) from the seed), written by save_adapter, loaded by"
+        f" load_from_lora with its base in {lora_s:.2f} s, merged in place "
+        f"in {merge_s:.3f} s; relative L2 of {TILE} reps: adapter vs base "
+        f"{d_adapter:.4f}, merged vs unmerged {d_merge:.4f} (limit "
+        f"{MERGE_RTOL}: each bf16 weight rounded once more), the source "
+        f"after the merge vs merged {d_source:.6f}; card {card_s}")
+    del unmerged, base_reps, before, after, again
+    free()
+
+    # ---- 3. indexing through eval_sparse's body ----
+    lap("indexing")
+    corpus = os.path.join(tmp, "corpus.tsv")
+    doc_words = []
+    with open(corpus, "w") as f:
+        for d in range(CKPT_DOCS):
+            words = [f"w{x}" for x in rng.integers(
+                0, VOCAB, int(rng.integers(40, 2 * CKPT_DOC_LEN)))]
+            doc_words.append(words)
+            f.write(f"p{d}\t{' '.join(words)}\n")
+    docs_model = TopKReps(merged, CKPT_L0_D)
+
+    def index_args(index_dir, t, path=corpus):
+        return eval_sparse.build_parser().parse_args(
+            ["--task_name", "indexing", "--corpus_path", path,
+             "--index_dir", index_dir, "--eval_batch_size", str(TILE),
+             "--doc_max_length", str(CKPT_DOC_LEN), "--data_source",
+             "msmarco", "--index_sparsify_t", str(t), "--device", str(dev)])
+
+    arms = {}
+    for arm, t in (("packed", CKPT_T), ("full", 0)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = eval_sparse.sparse_index(
+            index_args(os.path.join(tmp, f"index_{arm}"), t),
+            model=docs_model, tokenizer=tok)
+        wall = time.perf_counter() - t0
+        arms[arm] = out
+        log(f"indexing ({arm} read, --index_sparsify_t {t}): {CKPT_DOCS} "
+            f"docs in {wall:.1f} s, {CKPT_DOCS / wall:.1f} docs/s, "
+            f"fallback batches {out['indexer'].n_fallback_batches}, L0_d "
+            f"{out['stats']['L0_d']:.2f}, {out['index'].nnz} postings, peak "
+            f"card memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} "
+            f"GB; card {card_s}")
+    index = arms["packed"]["index"]
+    same_index(index, arms["full"]["index"], "packed vs full read")
+    check(arms["packed"]["indexer"].n_fallback_batches == 0
+          and index.nb_docs() == CKPT_DOCS
+          and index.nnz <= CKPT_DOCS * CKPT_L0_D, "the packed arm")
+    t0 = time.perf_counter()
+    index.save(os.path.join(tmp, "index_copy"))
+    save_idx_s = time.perf_counter() - t0
+    same_index(SparseIndex.load(os.path.join(tmp, "index_packed")), index,
+               "the saved index")
+    # the unwrapped model (reps about half dense) over one batch: the
+    # packed read falls back to the full read
+    one = os.path.join(tmp, "one_batch.tsv")
+    with open(one, "w") as f:
+        for d in range(TILE):
+            f.write(f"p{d}\t{' '.join(doc_words[d])}\n")
+    fb = eval_sparse.sparse_index(index_args(os.path.join(tmp, "fb"),
+                                             CKPT_T, one),
+                                  model=merged, tokenizer=tok)
+    fb_full = eval_sparse.sparse_index(
+        index_args(os.path.join(tmp, "fb_full"), 0, one), model=merged,
+        tokenizer=tok)
+    check(fb["indexer"].n_fallback_batches >= 1,
+          "the unwrapped batch did not fall back")
+    same_index(fb["index"], fb_full["index"], "fallback vs full read")
+    n_fb = fb["indexer"].n_fallback_batches
+    log(f"indexing: packed == full read (bit-equal); index.save "
+        f"{save_idx_s:.2f} s; one unwrapped batch: {n_fb} fallback, L0_d "
+        f"{fb['stats']['L0_d']:.0f}, index == the full read's")
+    del arms, fb, fb_full
+    free()
+
+    # ---- 4. queries to run.json through B1, B4 and B5 ----
+    lap("queries to run.json")
+    picks = rng.choice(CKPT_DOCS, CKPT_QUERIES, replace=False)
+    qpath = os.path.join(tmp, "queries.tsv")
+    with open(qpath, "w") as f:
+        for i, d in enumerate(picks):
+            f.write(f"q{i}\t{' '.join(doc_words[d][:CKPT_QUERY_WORDS])}\n")
+    qrel_path = os.path.join(tmp, "qrel.json")
+    qrel = {f"q{i}": {f"p{d}": 1} for i, d in enumerate(picks)}
+    with open(qrel_path, "w") as f:
+        json.dump(qrel, f)
+    q_model = TopKReps(merged, L0_Q)
+    idx_dir = os.path.join(tmp, "index_packed")
+
+    def args(task, out_dir, *extra):
+        return eval_sparse.build_parser().parse_args(
+            ["--task_name", task, "--index_dir", idx_dir, "--out_dir",
+             out_dir, "--query_path", qpath, "--data_source", "msmarco",
+             "--eval_batch_size", "128", "--query_max_length", "64",
+             "--top_k", str(TOPK), "--device", str(dev), *extra])
+
+    reps_path = os.path.join(tmp, "query_reps.npz")
+    t0 = time.perf_counter()
+    eval_sparse.encode_queries(args("encode_queries", tmp,
+                                    "--query_reps_path", reps_path,
+                                    "--reps_format", "sparse"),
+                               model=q_model, tokenizer=tok)
+    enc_s = time.perf_counter() - t0
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    eval_sparse.sparse_retrieval(args("retrieval", os.path.join(tmp, "r1"),
+                                      "--query_reps_path", reps_path))
+    ret_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    t0 = time.perf_counter()
+    eval_sparse.sparse_retrieval(args("retrieval", os.path.join(tmp, "r2")),
+                                 model=q_model, tokenizer=tok)
+    text_s = time.perf_counter() - t0
+    runs = []
+    for r in ("r1", "r2"):
+        with open(os.path.join(tmp, r, "run.json")) as f:
+            runs.append(json.load(f))
+    qids = [f"q{i}" for i in range(CKPT_QUERIES)]
+    same_run(runs[1], runs[0], qids, 1e-5, "run.json from text vs from reps")
+    z = np.load(reps_path, allow_pickle=True)
+    check(z["ids"].tolist() == qids, "query_reps ids")
+    plain = ss.SegsortEngine(index, topk=TOPK, ops=ss.PLAIN, device=dev)
+    run_plain = engine_run(plain, z["q_terms"], z["q_vals"], qids,
+                           index.doc_ids, index.nb_docs())
+    same_run(runs[0], run_plain, qids, 1e-5, "kernel path vs plain path")
+    eval_sparse.evaluate_msmarco(eval_sparse.build_parser().parse_args(
+        ["--task_name", "evaluate_msmarco", "--eval_qrel_path", qrel_path,
+         "--eval_run_path", os.path.join(tmp, "r1", "run.json"),
+         "--eval_metric", "['mrr_10','recall']", "--out_dir",
+         os.path.join(tmp, "r1")]))
+    with open(os.path.join(tmp, "r1", "perf.json")) as f:
+        perf = json.load(f)
+    want_perf = {"mrr_10": {"mrr_10": metrics.mrr_k(runs[0], qrel, 10)},
+                 "recall": metrics.evaluate(runs[0], qrel, "recall")}
+    check(perf == want_perf, f"perf.json {perf} != {want_perf}")
+    lens = [len(runs[0][q]) for q in qids]
+    log(f"queries: {CKPT_QUERIES} doc-prefix texts ({CKPT_QUERY_WORDS} "
+        f"words, top {L0_Q} terms kept); encode_queries {enc_s:.2f} s; "
+        f"retrieval from the reps file {ret_s:.2f} s, from text {text_s:.2f}"
+        f" s; the two run.json tie-equal (rtol 1e-5), == the plain-ops "
+        f"engine (tie-equal, rtol 1e-5); {min(lens)}-{max(lens)} docs per "
+        f"query; MRR@10 {perf['mrr_10']['mrr_10']:.4f}, recall@1000 "
+        f"{perf['recall']['recall_1000']:.4f}; launches {launches}; card "
+        f"{card_s}")
+    del plain, q_model, docs_model
+    free()
+
+    # ---- 5. the host CSR build at 1/8 of MSMARCO's depth ----
+    lap("host CSR build")
+    order = np.argsort(index.doc_rows, kind="stable")
+    base_rows = index.doc_rows[order].astype(np.int64)
+    term_of = np.repeat(np.arange(index.dim, dtype=np.int64),
+                        np.diff(index.offsets))[order]
+    vals_of = index.values[order]
+    reps_n = -(-CSR_DOCS // index.nb_docs())
+    rows = (base_rows[None, :] + (np.arange(reps_n, dtype=np.int64)
+                                  * index.nb_docs())[:, None]).ravel()
+    keep = rows < CSR_DOCS
+    rows = rows[keep].astype(np.int32)
+    cols = np.tile(term_of, reps_n)[keep]
+    vals = np.tile(vals_of, reps_n)[keep]
+    del keep
+    t0 = time.perf_counter()
+    big = SparseIndex.from_triples(rows, cols, vals,
+                                   [f"p{d}" for d in range(CSR_DOCS)],
+                                   index.dim)
+    csr_s = time.perf_counter() - t0
+    check(big.nnz == len(rows) and big.nb_docs() == CSR_DOCS,
+          "the replicated CSR")
+    n_full = N_DOCS * K_PER_DOC
+    log(f"host CSR build: SparseIndex.from_triples over {big.nnz} postings "
+        f"({CSR_DOCS} docs, step 3's card reps replicated with shifted "
+        f"rows) in {csr_s:.2f} s ({big.nnz / csr_s / 1e6:.1f} M postings/s);"
+        f" at MSMARCO's depth ({n_full} postings) that rate gives "
+        f"{csr_s * n_full / big.nnz:.1f} s (extrapolated, linear; the sort "
+        f"is n log n)")
+    del big, rows, cols, vals, base_rows, order, term_of, vals_of
+
+    # ---- 6. a dense index streamed to disk and back ----
+    lap("dense serialize")
+    import shutil
+
+    free_disk = shutil.disk_usage(tmp).free
+    need = C3_CHUNKS * DENSE_CHUNK * DENSE_DIM * 4
+    check(free_disk > 1.2 * need, f"disk: {free_disk / 1e9:.1f} GB free, "
+          f"the file needs {need / 1e9:.1f} GB")
+    ix = empty_dense_index(dev)
+    for s0, v in corpus_chunks(dev, seed + 9, C3_CHUNKS * DENSE_CHUNK):
+        ix.add_batch(range(s0, s0 + len(v)), v)
+    torch.cuda.synchronize()
+    ddir = os.path.join(tmp, "dense_index")
+    t0 = time.perf_counter()
+    _, grew = rss_growth(lambda: ix.serialize(ddir))
+    ser_s = time.perf_counter() - t0
+    fsize = os.path.getsize(os.path.join(ddir, DenseFlatIndexer.INDEX_FILE))
+    chunk_bytes = DENSE_CHUNK * DENSE_DIM * 4
+    check(grew < 2 * chunk_bytes, f"serialize grew the host memory by "
+          f"{grew / 1e9:.2f} GB >= two f32 chunks ({2 * chunk_bytes / 1e9:.2f}"
+          f" GB)")
+    back = empty_dense_index(dev)
+    t0 = time.perf_counter()
+    back.deserialize(ddir)
+    des_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    q, _ = noisy_queries(ix, DENSE_TILE, g)
+    same_topk(result_arrays(back.search_knn(q, TOPK)),
+              result_arrays(ix.search_knn(q, TOPK)), "deserialized tile")
+    limit_gb = 2 * chunk_bytes / 1e9
+    log(f"dense serialize: {ix.ntotal} x {DENSE_DIM} ({C3_CHUNKS} chunks, "
+        f"bf16 on the card) streamed to a {fsize / 1e9:.2f} GB f32 npz in "
+        f"{ser_s:.1f} s ({fsize / ser_s / 1e9:.2f} GB/s), host memory grew "
+        f"{grew / 1e9:.2f} GB (limit two f32 chunks, {limit_gb:.2f} GB); "
+        f"deserialize {des_s:.1f} s; a {DENSE_TILE}-query tile bit-equal "
+        f"after the round trip; card {card_s}")
+    del ix, back, q
+    free()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"phase 7 (checkpoint pipeline): {time.perf_counter() - t_phase:.1f}"
+        f" s, peak card memory {peak / 1e9:.2f} GB allocated; card {card_s}")
+    return {"checkpoint pipeline": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2281,7 +2692,7 @@ def main(argv=None) -> int:
 
 
 def run(dev, seed: int, card_s: str) -> list:
-    """Phases 2-6 on ``dev``; returns the per-kernel report entries."""
+    """Phases 2-7 on ``dev``; returns the per-kernel report entries."""
     from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
 
     t0 = time.perf_counter()
@@ -2346,6 +2757,13 @@ def run(dev, seed: int, card_s: str) -> list:
     for path, counts in dense.items():
         log(f"launches over the {path} path: {counts}")
     paths.update(dense)
+    log("phase 6: the dense path (bf16 and int8 at 8,841,823 x 2048, "
+        "served, HTTP, text, eval_dense, the server CLI) through B5")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = checkpoint_phase(dev, model, seed, card_s, tmp)
+    for path, counts in ckpt.items():
+        log(f"launches over the {path} path: {counts}")
+    paths.update(ckpt)
     report.append(entry)
     for path, kernels in PATH_KERNELS.items():
         missing = [k_ for k_ in kernels if paths[path][k_] == 0]
@@ -2355,8 +2773,9 @@ def run(dev, seed: int, card_s: str) -> list:
         r["launches"] = sum(p_[r["name"]] for p_ in paths.values())
     check(all(r["launches"] > 0 for r in report),
           f"a kernel was not launched on the main paths: {paths}")
-    log("phase 6: the dense path (bf16 and int8 at 8,841,823 x 2048, "
-        "served, HTTP, text, eval_dense, the server CLI) through B5")
+    log("phase 7: the offline pipeline from a checkpoint on disk (1B "
+        "checkpoint and adapter, indexing, queries to run.json) through B1, "
+        "B4 and B5")
     return report
 
 

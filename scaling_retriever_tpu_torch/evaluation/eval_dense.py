@@ -9,10 +9,12 @@ same flags plus ``--device`` (default "cuda").
   * ``evaluate_msmarco`` / ``evaluate_beir`` — ``perf.json``.
 
 ``write_doc_embeds`` and ``dense_retrieval`` take the encoder and the
-tokenizer as arguments; from the command line they load them from
-``--model_name_or_path``, which is not ported yet (checkpoint and tokenizer
-loading, ROADMAP A7) and raises ``NotImplementedError``, as ``--use_mesh``
-and ``MeshDenseRetriever`` do (the sharded search, A10).
+tokenizer as arguments, or load them from ``--model_name_or_path`` (plus
+``--lora_name_or_path``; a LoRA directory loads its base model) onto
+``--device``; the tokenizer is the checkpoint directory's, which
+``transformers`` loads. ``--use_mesh`` and ``MeshDenseRetriever`` (the
+sharded search, ROADMAP A10) are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -86,12 +88,16 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _load_model(args):
-    raise _not_ported("loading a dense encoder from --model_name_or_path "
-                      "(checkpoint loading)", "A7")
+    from scaling_retriever_tpu_torch.models.encoder import load_encoder
+
+    return load_encoder(args.model_name_or_path, "dense",
+                        args.lora_name_or_path, device=args.device)
 
 
 def _tokenizer(args):
-    raise _not_ported("loading a tokenizer from --model_name_or_path", "A7")
+    from scaling_retriever_tpu_torch.models.encoder import load_tokenizer
+
+    return load_tokenizer(args.model_name_or_path)
 
 
 def _beir_path(args) -> str:

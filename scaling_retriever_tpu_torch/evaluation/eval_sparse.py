@@ -1,22 +1,31 @@
 """Sparse evaluation CLI (port of evaluation/eval_sparse.py):
-retrieval | evaluate_msmarco | evaluate_beir, with the same flags plus
-``--device`` (default "cuda").
+indexing | encode_queries | retrieval | evaluate_msmarco | evaluate_beir,
+with the same flags plus ``--device`` (default "cuda").
 
-    python -m scaling_retriever_tpu_torch.evaluation.eval_sparse \\
-        --task_name retrieval --index_dir IDX --out_dir OUT \\
-        --query_reps_path query_reps.npz [--passes 2] [--device cuda]
+    python -m scaling_retriever_tpu_torch.evaluation.eval_sparse \
+        --task_name indexing --model_name_or_path CKPT \
+        --corpus_path corpus.tsv --index_dir IDX [--device cuda]
+    python -m scaling_retriever_tpu_torch.evaluation.eval_sparse \
+        --task_name retrieval --index_dir IDX --out_dir OUT \
+        (--query_reps_path query_reps.npz | --model_name_or_path CKPT \
+         --query_path queries.tsv) [--passes 2] [--device cuda]
 
-``retrieval`` reads pre-encoded queries from ``--query_reps_path`` (an npz
-with ``ids`` and either sparse ``q_terms``/``q_vals`` or dense ``reps``)
-and writes ``run.json`` and ``q_stats.json`` (with ``--passes N`` the
-stream runs N times in one process, run.json from the last pass and
-per-pass stats under "passes"). ``evaluate_msmarco`` writes ``perf.json``
-from a run and a qrel; ``evaluate_beir`` from ``out_dir/run.json`` and a
-local BEIR dataset's qrels.
+``indexing`` encodes the corpus with the checkpoint (plus
+``--lora_name_or_path``; a LoRA directory as ``--model_name_or_path``
+loads its base model) and writes the index (``_{rank}`` suffixed with
+``--world_size`` > 1). ``encode_queries`` writes the query reps to
+``--query_reps_path`` (default ``out_dir/query_reps.npz``). ``retrieval``
+reads pre-encoded queries from ``--query_reps_path`` (an npz with ``ids``
+and either sparse ``q_terms``/``q_vals`` or dense ``reps``) or encodes
+query text, and writes ``run.json`` and ``q_stats.json`` (with ``--passes
+N`` the stream runs N times in one process, run.json from the last pass
+and per-pass stats under "passes"). ``evaluate_msmarco`` writes
+``perf.json`` from a run and a qrel; ``evaluate_beir`` from
+``out_dir/run.json`` and a local BEIR dataset's qrels. The text tasks need
+a tokenizer in the checkpoint directory, which ``transformers`` loads.
 
-Not ported yet, and raising ``NotImplementedError``: ``indexing`` (the
-indexer, ROADMAP A8), and ``encode_queries`` or ``retrieval`` from query
-text (checkpoint and tokenizer loading, A7), ``--use_mesh`` (A10).
+Not ported yet, and raising ``NotImplementedError``: ``--use_mesh`` (the
+sharded engine, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -28,10 +37,19 @@ import os
 
 import numpy as np
 
+from scaling_retriever_tpu_torch import constants
+from scaling_retriever_tpu_torch.data.collators import \
+    LlamaSparseCollectionCollator
+from scaling_retriever_tpu_torch.data.datasets import (
+    BeirDataset, CollectionDataset, MSMARCOQueryDataset, WikiQueryDataset,
+)
 from scaling_retriever_tpu_torch.data.io import load_beir_dataset
+from scaling_retriever_tpu_torch.data.loader import DataLoader
+from scaling_retriever_tpu_torch.data.prefetch import PrefetchLoader
 from scaling_retriever_tpu_torch.evaluation.metrics import (
     evaluate_beir, load_and_evaluate,
 )
+from scaling_retriever_tpu_torch.index.indexer import SparseIndexer
 from scaling_retriever_tpu_torch.index.sparse_retrieval import SparseRetrieval
 
 
@@ -87,12 +105,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_mesh", action="store_true",
                    help="shard the index over all local devices")
     p.add_argument("--device", default="cuda",
-                   help="torch device for retrieval (cuda, cuda:N or cpu)")
+                   help="torch device of the encoder and retrieval (cuda, "
+                        "cuda:N or cpu)")
     return p
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _load_model(args):
+    from scaling_retriever_tpu_torch.models.encoder import load_encoder
+
+    return load_encoder(args.model_name_or_path, "sparse",
+                        args.lora_name_or_path, device=args.device)
+
+
+def _tokenizer(args):
+    from scaling_retriever_tpu_torch.models.encoder import load_tokenizer
+
+    return load_tokenizer(args.model_name_or_path)
 
 
 def _beir_path(args) -> str:
@@ -104,30 +136,102 @@ def _beir_path(args) -> str:
     return path
 
 
-def _query_loader(args) -> list:
-    """Batches of pre-encoded queries from ``--query_reps_path``: sparse
-    ({"q_terms", "q_vals", "ids"}) or dense ({"rep", "ids"})."""
-    if not args.query_reps_path:
-        raise _not_ported("retrieval from query text (checkpoint and "
-                          "tokenizer loading; pass --query_reps_path)", "A7")
-    data = np.load(args.query_reps_path, allow_pickle=True)
-    ids = data["ids"].tolist()
-    bz = args.eval_batch_size
-    if "q_terms" in data:
-        qt, qv = data["q_terms"], data["q_vals"]
-        return [{"q_terms": qt[i:i + bz], "q_vals": qv[i:i + bz],
-                 "ids": ids[i:i + bz]} for i in range(0, len(ids), bz)]
-    reps = data["reps"]
-    return [{"rep": reps[i:i + bz], "ids": ids[i:i + bz]}
-            for i in range(0, len(ids), bz)]
+def sparse_index(args, model=None, tokenizer=None) -> dict:
+    """Encode the corpus (``--corpus_path`` or a BEIR corpus) into an index
+    at ``--index_dir``; ``model`` and ``tokenizer`` default to loading
+    ``--model_name_or_path``. Returns ``SparseIndexer.index``'s result
+    plus the indexer under "indexer"."""
+    tokenizer = tokenizer if tokenizer is not None else _tokenizer(args)
+    if args.is_beir and args.beir_dataset:
+        corpus, _, _ = load_beir_dataset(_beir_path(args))
+        d_collection = BeirDataset(corpus, information_type="document")
+    else:
+        source = args.data_source or constants.guess_data_source(
+            args.corpus_path)
+        d_collection = CollectionDataset(args.corpus_path, data_source=source)
+    model = model if model is not None else _load_model(args)
+    collator = LlamaSparseCollectionCollator(tokenizer, args.doc_max_length)
+    index_dir = args.index_dir
+    if args.world_size > 1:
+        index_dir = index_dir.rstrip("/") + f"_{args.rank}"
+    loader = DataLoader(d_collection, args.eval_batch_size, collator,
+                        rank=args.rank, world_size=args.world_size)
+    indexer = SparseIndexer(model, index_dir, dim_voc=model.vocab_size,
+                            rank=args.rank, world_size=args.world_size,
+                            device_sparsify_t=args.index_sparsify_t)
+    out = indexer.index(PrefetchLoader(loader))
+    out["indexer"] = indexer
+    return out
 
 
-def sparse_retrieval(args) -> None:
+def _query_loader(args, use_reps: bool = True, tokenizer=None):
+    """Tokenized query batches, or, with ``--query_reps_path``, batches of
+    pre-encoded queries: sparse ({"q_terms", "q_vals", "ids"}) or dense
+    ({"rep", "ids"})."""
+    if use_reps and args.query_reps_path:
+        data = np.load(args.query_reps_path, allow_pickle=True)
+        ids = data["ids"].tolist()
+        bz = args.eval_batch_size
+        if "q_terms" in data:
+            qt, qv = data["q_terms"], data["q_vals"]
+            return [{"q_terms": qt[i:i + bz], "q_vals": qv[i:i + bz],
+                     "ids": ids[i:i + bz]} for i in range(0, len(ids), bz)]
+        reps = data["reps"]
+        return [{"rep": reps[i:i + bz], "ids": ids[i:i + bz]}
+                for i in range(0, len(ids), bz)]
+    tokenizer = tokenizer if tokenizer is not None else _tokenizer(args)
+    if args.is_beir and args.beir_dataset:
+        _, queries, _ = load_beir_dataset(_beir_path(args))
+        q_collection = BeirDataset(queries, information_type="query")
+    else:
+        source = args.data_source or constants.guess_data_source(
+            args.query_path)
+        q_collection = (WikiQueryDataset(args.query_path) if source == "wiki"
+                        else MSMARCOQueryDataset(args.query_path))
+    collator = LlamaSparseCollectionCollator(tokenizer, args.query_max_length)
+    return DataLoader(q_collection, args.eval_batch_size, collator)
+
+
+def encode_queries(args, model=None, tokenizer=None) -> str:
+    """Encode the query stream once and write (ids, reps) to
+    ``--query_reps_path`` (default ``out_dir/query_reps.npz``): sparse
+    (q_terms, q_vals) at least 64 wide and as wide as the densest row, or
+    dense [nq, V] reps (``--reps_format``). Returns the path written."""
+    from scaling_retriever_tpu_torch.ops.segsort_scoring import sparsify_reps
+
+    loader = _query_loader(args, use_reps=False, tokenizer=tokenizer)
+    model = model if model is not None else _load_model(args)
+    qids, reps = [], []
+    for batch in loader:
+        reps.append(model.encode(batch["input_ids"], batch["attention_mask"])
+                    .float().cpu().numpy())
+        qids.extend(batch["ids"])
+    out = args.query_reps_path or os.path.join(args.out_dir, "query_reps.npz")
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    dense = (np.concatenate(reps, 0) if reps
+             else np.zeros((0, model.vocab_size), np.float32))
+    if args.reps_format == "sparse":
+        q_terms, q_vals = sparsify_reps(dense)
+        np.savez(out, ids=np.asarray(qids, dtype=object),
+                 q_terms=q_terms, q_vals=q_vals)
+    else:
+        np.savez(out, ids=np.asarray(qids, dtype=object), reps=dense)
+    return out
+
+
+def sparse_retrieval(args, model=None, tokenizer=None) -> None:
+    """Rank the queries (pre-encoded, or text through ``model``, which
+    defaults to loading ``--model_name_or_path``) over ``--index_dir``
+    into ``--out_dir``."""
     if args.use_mesh:
         raise _not_ported("--use_mesh (the sharded engine)", "A10")
-    loader = _query_loader(args)
+    loader = _query_loader(args, tokenizer=tokenizer)
+    if args.query_reps_path:
+        model = None
+    elif model is None:
+        model = _load_model(args)
     os.makedirs(args.out_dir, exist_ok=True)
-    retriever = SparseRetrieval(None, args.index_dir, out_dir=args.out_dir,
+    retriever = SparseRetrieval(model, args.index_dir, out_dir=args.out_dir,
                                 topk=args.top_k, engine=args.engine,
                                 query_tile=args.query_tile,
                                 index_val_dtype=args.index_val_dtype,
@@ -139,10 +243,11 @@ def sparse_retrieval(args) -> None:
     # and run.json is built and written by the last pass only
     from scaling_retriever_tpu_torch.utils.profiling import reset_timings
 
+    batches = list(loader)
     per_pass = []
     for p_i in range(args.passes):
         reset_timings()
-        _, stats = retriever.retrieve(loader, topk=args.top_k,
+        _, stats = retriever.retrieve(batches, topk=args.top_k,
                                       threshold=0.0, return_run=False,
                                       write_run=(p_i == args.passes - 1))
         per_pass.append({"pass": p_i + 1,
@@ -173,11 +278,10 @@ def evaluate_msmarco(args) -> None:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.task_name == "indexing":
-        raise _not_ported("task indexing (the indexer)", "A8")
-    if args.task_name == "encode_queries":
-        raise _not_ported("task encode_queries (checkpoint and tokenizer "
-                          "loading)", "A7")
-    if args.task_name == "retrieval":
+        sparse_index(args)
+    elif args.task_name == "encode_queries":
+        encode_queries(args)
+    elif args.task_name == "retrieval":
         sparse_retrieval(args)
     elif args.task_name == "evaluate_msmarco":
         evaluate_msmarco(args)

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+import zipfile
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -513,21 +514,40 @@ class DenseFlatIndexer(DenseIndexer):
             out.extend(self.tile_results(scores, rows, n_real))
         return out
 
+    def _host_chunks(self, dtype=np.float32):
+        """The added vectors on the host as ``dtype``, one store chunk at
+        a time (an f32 host chunk comes out as the stored array itself)."""
+        for c, blk in enumerate(self._store):
+            rows = blk[:max(0, min(self.chunk, self._n - c * self.chunk))]
+            yield rows.float().cpu().numpy().astype(dtype, copy=False)
+
     def _host_vectors(self) -> np.ndarray:
         """The added vectors, widened to f32, on the host: [n, D]."""
-        parts = [blk[:max(0, min(self.chunk, self._n - c * self.chunk))]
-                 .float().cpu().numpy() for c, blk in enumerate(self._store)]
+        parts = list(self._host_chunks())
         return (np.concatenate(parts) if parts
                 else np.zeros((0, self.vector_sz or 0), np.float32))
 
     def serialize(self, index_dir: str, store_dtype=np.float32):
         """Persist the vectors (f32 by default, the f32 widening of what was
-        added) and the row → db id list, in the reference's files."""
+        added) and the row → db id list, in the reference's files: an
+        ``np.savez`` archive with members ``vectors`` [n, D] and
+        ``vector_sz``. The ``vectors`` member is streamed into the archive
+        chunk by chunk (an npy header, then each chunk's bytes), so the
+        host never holds a second copy of the store."""
         os.makedirs(index_dir, exist_ok=True)
-        docs = self._host_vectors()
-        np.savez(os.path.join(index_dir, self.INDEX_FILE),
-                 vectors=docs.astype(store_dtype, copy=False),
-                 vector_sz=np.int64(self.vector_sz or docs.shape[1]))
+        dtype = np.dtype(store_dtype)
+        dim = self.vector_sz or 0
+        header = {"descr": np.lib.format.dtype_to_descr(dtype),
+                  "fortran_order": False, "shape": (self._n, dim)}
+        with zipfile.ZipFile(os.path.join(index_dir, self.INDEX_FILE), "w",
+                             zipfile.ZIP_STORED, allowZip64=True) as zf:
+            with zf.open("vectors.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array_header_1_0(f, header)
+                for part in self._host_chunks(dtype):
+                    f.write(np.ascontiguousarray(part).data)
+                    del part  # one chunk's host copy at a time
+            with zf.open("vector_sz.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asarray(np.int64(dim)))
         with open(os.path.join(index_dir, self.META_FILE), "w") as f:
             json.dump(self.index_id_to_db_id, f)
 

@@ -8,6 +8,8 @@ checkpoint uses llama3 scaling, which ``LLAMA_3_2_1B`` carries.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional
 
 import torch
@@ -72,5 +74,43 @@ class ModelConfig:
         """Build from a parsed HF ``config.json`` dict."""
         known = {f.name for f in dataclasses.fields(cls)}
         kwargs = {k: v for k, v in cfg.items() if k in known}
+        # newer config.json files name their storage dtype ("dtype":
+        # "bfloat16"); the compute dtypes stay the caller's (the reference
+        # takes the string as its activation dtype)
+        for k in ("dtype", "param_dtype"):
+            if isinstance(kwargs.get(k), str):
+                del kwargs[k]
+        # Qwen2 has bias on the q/k/v projections (HF hardwires it in
+        # Qwen2Attention; the config carries no flag)
+        if cfg.get("model_type") == "qwen2":
+            kwargs.setdefault("attention_qkv_bias", True)
         kwargs.update(overrides)
         return cls(**kwargs)
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, **overrides) -> "ModelConfig":
+        with open(os.path.join(model_dir, "config.json")) as f:
+            cfg = json.load(f)
+        return cls.from_hf_config(cfg, **overrides)
+
+    def to_hf_config(self) -> dict:
+        """The architecture fields as an HF-style ``config.json`` dict, the
+        reference's field for field (any model type other than llama is
+        labelled ``Qwen2ForCausalLM``, as the reference labels it)."""
+        return {
+            "architectures": ["LlamaForCausalLM" if self.model_type == "llama"
+                              else "Qwen2ForCausalLM"],
+            "model_type": self.model_type,
+            "vocab_size": self.vocab_size,
+            "hidden_size": self.hidden_size,
+            "intermediate_size": self.intermediate_size,
+            "num_hidden_layers": self.num_hidden_layers,
+            "num_attention_heads": self.num_attention_heads,
+            "num_key_value_heads": self.num_key_value_heads,
+            "head_dim": self.head_dim_,
+            "rms_norm_eps": self.rms_norm_eps,
+            "rope_theta": self.rope_theta,
+            "rope_scaling": self.rope_scaling,
+            "max_position_embeddings": self.max_position_embeddings,
+            "tie_word_embeddings": self.tie_word_embeddings,
+        }

@@ -1,6 +1,7 @@
-"""Retriever encoders (port of the sparse and dense classes of
-models/encoder.py; losses, HF loading and the model registry are not
-ported yet).
+"""Retriever encoders (port of models/encoder.py): the sparse and dense
+classes of the Llama, Qwen2 and Mistral families, their checkpoint and
+adapter loading, and the model registry. The training losses are not
+ported yet (ROADMAP A11), nor is the T5 family (A12).
 
 ``LLM2Retriever`` owns (params, lora, config). ``params`` is the
 ``LlamaBiForMNTP`` module holding the weights, the counterpart of the JAX
@@ -12,33 +13,74 @@ LM head.
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Optional
 
 import torch
 
 from scaling_retriever_tpu_torch.models.config import ModelConfig
+from scaling_retriever_tpu_torch.models.hf_loader import (load_pretrained,
+                                                         save_pretrained)
 from scaling_retriever_tpu_torch.models.llama import LlamaBiForMNTP
-from scaling_retriever_tpu_torch.models.lora import LoraConfig, merge_lora
+from scaling_retriever_tpu_torch.models.lora import (LoraConfig,
+                                                    init_lora_params,
+                                                    load_adapter, merge_lora,
+                                                    save_adapter)
 from scaling_retriever_tpu_torch.ops.pooling import dense_pool, sparse_pool
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _resolve_model_dir(name_or_path: str) -> str:
+    """A local dir, or a hub id resolved offline through
+    ``SRT_MODEL_DIR_MAP`` (a json dict) or ``SRT_MODEL_CACHE``; nothing is
+    fetched."""
+    if os.path.isdir(name_or_path):
+        return name_or_path
+    map_json = os.environ.get("SRT_MODEL_DIR_MAP")
+    if map_json:
+        mapping = json.loads(map_json)
+        if name_or_path in mapping:
+            return mapping[name_or_path]
+    cache = os.environ.get("SRT_MODEL_CACHE")
+    if cache:
+        cand = os.path.join(cache, name_or_path.replace("/", "--"))
+        if os.path.isdir(cand):
+            return cand
+    raise FileNotFoundError(
+        f"model {name_or_path!r} is not a local directory; set "
+        f"SRT_MODEL_DIR_MAP (json dict) or SRT_MODEL_CACHE to resolve hub "
+        f"ids offline")
 
 
 class LLM2Retriever:
     """Base retriever: text ids → sparse reps over the vocab ("sparse") or
     dense embeddings of the hidden size ("dense")."""
 
+    MODEL_TYPE = "llama"
     POOLING = "sparse"           # "sparse" | "dense"
+    LOSS_TYPE = "nce"            # nce | margin_mse | kldiv | nce_kldiv
+    BASE_MODEL_CLASS = "LlamaBiForMNTP"
 
     def __init__(self, params: LlamaBiForMNTP, config: ModelConfig,
                  lora: Optional[dict] = None,
-                 lora_config: Optional[LoraConfig] = None):
+                 lora_config: Optional[LoraConfig] = None, T: float = 1.0):
         self.params = params
         self.config = config
         self.lora = lora
         self.lora_config = lora_config
+        self.T = T
 
     @property
     def device(self) -> torch.device:
         return self.params.device
+
+    @property
+    def vocab_size(self) -> int:
+        return self.config.vocab_size
 
     @property
     def hidden_size(self) -> int:
@@ -58,6 +100,9 @@ class LLM2Retriever:
         hidden = params.forward_hidden(input_ids, attention_mask, lora, scale)
         return dense_pool(hidden, attention_mask)
 
+    def loss_forward(self, params, lora, batch, dropout_rng=None) -> dict:
+        raise _not_ported(f"the {self.LOSS_TYPE} training loss", "A11")
+
     @torch.inference_mode()
     def encode(self, input_ids, attention_mask) -> torch.Tensor:
         """ids and mask (numpy or tensors) → f32 reps on the model's
@@ -72,12 +117,101 @@ class LLM2Retriever:
     def query_encode(self, input_ids, attention_mask) -> torch.Tensor:
         return self.encode(input_ids, attention_mask)
 
+    def rerank_forward(self, tokenized_queries: dict,
+                       tokenized_docs: dict) -> torch.Tensor:
+        """Pointwise dot-product rerank scores."""
+        q = self.encode(**tokenized_queries)
+        d = self.encode(**tokenized_docs)
+        return (q * d).sum(dim=-1)
+
     def merge_and_unload(self) -> "LLM2Retriever":
-        """Fold LoRA into the base weights (in place) and drop the adapter."""
+        """Fold LoRA into the base weights and drop the adapter. The merge
+        is in place, so this object drops its adapter too: both it and the
+        returned one encode as the merged model."""
         if self.lora is None:
             return self
         merged = merge_lora(self.params, self.lora, self.lora_config)
-        return type(self)(merged, self.config)
+        self.lora = self.lora_config = None
+        return type(self)(merged, self.config, None, None, T=self.T)
+
+    def save_pretrained(self, save_dir: str) -> None:
+        if self.lora is not None:
+            save_adapter(self.lora, self.lora_config, save_dir)
+        else:
+            save_pretrained(self.params, self.config, save_dir)
+
+    def save_trained(self, trainable: dict, out_dir: str,
+                     use_lora: bool = True) -> None:
+        raise _not_ported("saving a trained artifact (training)", "A11")
+
+    # -- constructors -------------------------------------------------------
+
+    @classmethod
+    def _default_T(cls, args) -> float:
+        return getattr(args, "T", 0.01) if cls.POOLING == "dense" else 1.0
+
+    @classmethod
+    def build(cls, model_name_or_path: str, args,
+              config: Optional[dict] = None,
+              generator: Optional[torch.Generator] = None, device="cuda",
+              **config_overrides) -> "LLM2Retriever":
+        """Training setup: base weights plus a newly initialized LoRA when
+        ``args.lora`` (``generator`` seeds it; seed 0 on ``device`` by
+        default)."""
+        model_dir = _resolve_model_dir(model_name_or_path)
+        overrides = dict(config_overrides)
+        if config:
+            overrides.update({k: v for k, v in config.items()
+                              if k in ModelConfig.__dataclass_fields__})
+        params, model_config = load_pretrained(model_dir, device=device,
+                                               **overrides)
+        lora = lora_config = None
+        if getattr(args, "lora", False):
+            lora_config = LoraConfig(
+                r=args.lora_r, lora_alpha=args.lora_alpha,
+                lora_dropout=getattr(args, "lora_dropout", 0.0),
+                base_model_name_or_path=model_name_or_path,
+                base_model_class=cls.BASE_MODEL_CLASS)
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            lora = init_lora_params(model_config, lora_config, generator,
+                                    device=device)
+        return cls(params, model_config, lora, lora_config,
+                   T=cls._default_T(args))
+
+    @classmethod
+    def load(cls, model_name_or_path: str,
+             lora_name_or_path: Optional[str] = None, merge_peft: bool = True,
+             is_trainable: bool = False, T: float = 0.01, device="cuda",
+             **config_overrides) -> "LLM2Retriever":
+        """Inference setup: base weights on ``device``, plus an optional
+        adapter, merged by default."""
+        model_dir = _resolve_model_dir(model_name_or_path)
+        params, model_config = load_pretrained(model_dir, device=device,
+                                               **config_overrides)
+        lora = lora_config = None
+        if lora_name_or_path:
+            lora, lora_config = load_adapter(
+                _resolve_model_dir(lora_name_or_path), model_config,
+                device=device)
+            if merge_peft:
+                params = merge_lora(params, lora, lora_config)
+                lora = lora_config = None
+        t = T if cls.POOLING == "dense" else 1.0
+        return cls(params, model_config, lora, lora_config, T=t)
+
+    @classmethod
+    def load_from_lora(cls, lora_name_or_path: str, merge_peft: bool = True,
+                       is_trainable: bool = False, T: float = 0.01,
+                       device="cuda", **config_overrides) -> "LLM2Retriever":
+        """The base model named in the adapter's config, plus the
+        adapter."""
+        adapter_dir = _resolve_model_dir(lora_name_or_path)
+        lc = LoraConfig.from_adapter_dir(adapter_dir)
+        return cls.load(lc.base_model_name_or_path,
+                        lora_name_or_path=adapter_dir, merge_peft=merge_peft,
+                        is_trainable=is_trainable, T=T, device=device,
+                        **config_overrides)
 
 
 class DecoderOnlyBiSparse(LLM2Retriever):
@@ -89,8 +223,147 @@ class DecoderOnlyBiDense(LLM2Retriever):
 
 
 class LlamaBiSparse(DecoderOnlyBiSparse):
-    pass
+    MODEL_TYPE = "llama"
+    BASE_MODEL_CLASS = "LlamaBiForMNTP"
+
+
+class Qwen2BiSparse(DecoderOnlyBiSparse):
+    MODEL_TYPE = "qwen2"
+    BASE_MODEL_CLASS = "Qwen2BiForMNTP"
 
 
 class LlamaBiDense(DecoderOnlyBiDense):
-    pass
+    MODEL_TYPE = "llama"
+    BASE_MODEL_CLASS = "LlamaBiModel"
+
+
+class Qwen2BiDense(DecoderOnlyBiDense):
+    MODEL_TYPE = "qwen2"
+    BASE_MODEL_CLASS = "Qwen2BiModel"
+
+
+class MistralBiSparse(DecoderOnlyBiSparse):
+    MODEL_TYPE = "mistral"
+    BASE_MODEL_CLASS = "MistralBiForMNTP"
+
+
+class MistralBiDense(DecoderOnlyBiDense):
+    MODEL_TYPE = "mistral"
+    BASE_MODEL_CLASS = "MistralBiModel"
+
+
+def _variant(base, loss_type, name):
+    cls = type(name, (base,), {"LOSS_TYPE": loss_type})
+    cls.__module__ = __name__
+    return cls
+
+
+LlamaBiSparseForNCE = LlamaBiSparse
+Qwen2BiSparseForNCE = Qwen2BiSparse
+LlamaBiDenseForNCE = LlamaBiDense
+Qwen2BiDenseForNCE = Qwen2BiDense
+
+LlamaBiSparseForMarginMSE = _variant(LlamaBiSparse, "margin_mse",
+                                     "LlamaBiSparseForMarginMSE")
+LlamaBiSparseForKLDiv = _variant(LlamaBiSparse, "kldiv",
+                                 "LlamaBiSparseForKLDiv")
+LlamaBiSparseForNCE_KLDiv = _variant(LlamaBiSparse, "nce_kldiv",
+                                     "LlamaBiSparseForNCE_KLDiv")
+Qwen2BiSparseForMarginMSE = _variant(Qwen2BiSparse, "margin_mse",
+                                     "Qwen2BiSparseForMarginMSE")
+Qwen2BiSparseForKLDiv = _variant(Qwen2BiSparse, "kldiv",
+                                 "Qwen2BiSparseForKLDiv")
+Qwen2BiSparseForNCE_KLDiv = _variant(Qwen2BiSparse, "nce_kldiv",
+                                     "Qwen2BiSparseForNCE_KLDiv")
+
+LlamaBiDenseForMarginMSE = _variant(LlamaBiDense, "margin_mse",
+                                    "LlamaBiDenseForMarginMSE")
+LlamaBiDenseForKLDiv = _variant(LlamaBiDense, "kldiv", "LlamaBiDenseForKLDiv")
+LlamaBiDenseForNCE_KLDiv = _variant(LlamaBiDense, "nce_kldiv",
+                                    "LlamaBiDenseForNCE_KLDiv")
+Qwen2BiDenseForMarginMSE = _variant(Qwen2BiDense, "margin_mse",
+                                    "Qwen2BiDenseForMarginMSE")
+Qwen2BiDenseForKLDiv = _variant(Qwen2BiDense, "kldiv", "Qwen2BiDenseForKLDiv")
+Qwen2BiDenseForNCE_KLDiv = _variant(Qwen2BiDense, "nce_kldiv",
+                                    "Qwen2BiDenseForNCE_KLDiv")
+
+
+class _Registry(dict):
+    """(model_type, pooling, loss) → encoder class. The reference
+    registers T5 on first lookup; the T5 family is not ported."""
+
+    def __missing__(self, key):
+        if key and key[0] == "t5":
+            raise _not_ported("the T5 family", "A12")
+        raise KeyError(key)
+
+
+MODEL_REGISTRY = _Registry({
+    ("llama", "sparse", "nce"): LlamaBiSparse,
+    ("llama", "sparse", "margin_mse"): LlamaBiSparseForMarginMSE,
+    ("llama", "sparse", "kldiv"): LlamaBiSparseForKLDiv,
+    ("llama", "sparse", "nce_kldiv"): LlamaBiSparseForNCE_KLDiv,
+    ("llama", "dense", "nce"): LlamaBiDense,
+    ("llama", "dense", "margin_mse"): LlamaBiDenseForMarginMSE,
+    ("llama", "dense", "kldiv"): LlamaBiDenseForKLDiv,
+    ("llama", "dense", "nce_kldiv"): LlamaBiDenseForNCE_KLDiv,
+    ("qwen2", "sparse", "nce"): Qwen2BiSparse,
+    ("qwen2", "sparse", "margin_mse"): Qwen2BiSparseForMarginMSE,
+    ("qwen2", "sparse", "kldiv"): Qwen2BiSparseForKLDiv,
+    ("qwen2", "sparse", "nce_kldiv"): Qwen2BiSparseForNCE_KLDiv,
+    ("qwen2", "dense", "nce"): Qwen2BiDense,
+    ("qwen2", "dense", "margin_mse"): Qwen2BiDenseForMarginMSE,
+    ("qwen2", "dense", "kldiv"): Qwen2BiDenseForKLDiv,
+    ("qwen2", "dense", "nce_kldiv"): Qwen2BiDenseForNCE_KLDiv,
+})
+
+for _loss in ("nce", "margin_mse", "kldiv", "nce_kldiv"):
+    MODEL_REGISTRY[("mistral", "sparse", _loss)] = (
+        MistralBiSparse if _loss == "nce"
+        else _variant(MistralBiSparse, _loss, f"MistralBiSparseFor{_loss}"))
+    MODEL_REGISTRY[("mistral", "dense", _loss)] = (
+        MistralBiDense if _loss == "nce"
+        else _variant(MistralBiDense, _loss, f"MistralBiDenseFor{_loss}"))
+
+
+def encoder_class(model_dir: str, pooling: str):
+    """The eval CLIs' dispatch: ``model_type`` from the directory's
+    ``config.json`` picks the family (an adapter directory's config, or
+    none, means Llama)."""
+    model_type = "llama"
+    cfg_path = os.path.join(model_dir, "config.json")
+    if os.path.isdir(model_dir) and os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+        model_type = cfg.get("model_type", "llama")
+        if "peft_type" in cfg:
+            model_type = "llama"
+    if model_type not in ("qwen2", "mistral"):
+        model_type = "llama"
+    return MODEL_REGISTRY[(model_type, pooling, "nce")]
+
+
+def load_encoder(model_dir: str, pooling: str,
+                 lora_name_or_path: Optional[str] = None, device="cuda",
+                 **config_overrides) -> LLM2Retriever:
+    """The eval CLIs' loading: a LoRA directory (``adapter_config.json``)
+    loads its base model and merges it; otherwise the checkpoint, merged
+    with ``lora_name_or_path`` when given."""
+    cls = encoder_class(model_dir, pooling)
+    if os.path.isdir(model_dir) and os.path.exists(
+            os.path.join(model_dir, "adapter_config.json")):
+        return cls.load_from_lora(model_dir, device=device,
+                                  **config_overrides)
+    if lora_name_or_path:
+        return cls.load(model_dir, lora_name_or_path=lora_name_or_path,
+                        device=device, **config_overrides)
+    return cls.load(model_dir, device=device, **config_overrides)
+
+
+def load_tokenizer(name_or_path: str):
+    """The checkpoint directory's tokenizer, loaded by ``transformers``
+    (imported here: the package does not need it otherwise), from a
+    directory resolved as the model's is: nothing is fetched."""
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(_resolve_model_dir(name_or_path))

@@ -747,9 +747,29 @@ def build_parser():
                          "arrays, run through every width rung before "
                          "serving")
     ap.add_argument("--model_name_or_path", default=None,
-                    help="sparse encoder checkpoint for raw-text queries "
-                         "(not ported yet: raises; the text frontend's "
-                         "flags come with it)")
+                    help="sparse encoder checkpoint dir: enables raw-text "
+                         "queries ({'text': ...}) through a micro-batched "
+                         "encode stage on the device (text_frontend.py); "
+                         "its tokenizer is loaded by transformers")
+    ap.add_argument("--lora_name_or_path", default=None)
+    ap.add_argument("--query_max_length", type=int, default=64)
+    ap.add_argument("--query_length_rungs", default="auto",
+                    help="comma list of token-length rungs (a batch pads "
+                         "to the smallest rung covering it); 'auto' = "
+                         "powers of two from 16 below query_max_length; "
+                         "'none' = one fixed length")
+    ap.add_argument("--t_sparse", type=int, default=64,
+                    help="top-T sparsification width of encoded queries")
+    ap.add_argument("--encode_widths", default="8,64",
+                    help="encoder tile width ladder")
+    ap.add_argument("--warmup_texts", default=None,
+                    help="text file (one query per line) run through the "
+                         "encoder width rungs before serving")
+    ap.add_argument("--handoff", choices=("auto", "off"), default="auto",
+                    help="device encode->retrieve handoff for text "
+                         "queries: the sparsified reps stay on the device "
+                         "and feed the retrieval directly ('auto': when "
+                         "the engine fetches by DMA over f32 or q8)")
     ap.add_argument("--dense_quantize", choices=("none", "int8"),
                     default="none",
                     help="dense layout: int8 = per-doc symmetric codes + "
@@ -772,11 +792,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if (args.index_dir is None) == (args.dense_index_dir is None):
         ap.error("exactly one of --index_dir / --dense_index_dir is required")
-    if args.model_name_or_path:
-        raise NotImplementedError(
-            "text queries (--model_name_or_path: the sparse encoder's "
-            "checkpoint and tokenizer loading) are not ported yet (ROADMAP "
-            "A7)")
+    if args.model_name_or_path and args.dense_index_dir:
+        ap.error("--model_name_or_path pairs with the sparse backend "
+                 "(--index_dir)")
 
     t0 = time.perf_counter()
     widths = ([int(w) for w in args.widths.split(",")]
@@ -817,6 +835,11 @@ def main(argv=None) -> None:
                              max_collect_ms=args.max_collect_ms)
     print(f"index + engine resident in {time.perf_counter() - t0:.1f} s",
           file=sys.stderr)
+    frontend = None
+    if args.model_name_or_path:
+        frontend = _text_frontend(args, server, engine)
+        print(f"encoder frontend resident ({args.model_name_or_path})",
+              file=sys.stderr)
     if args.warmup_queries:
         z = np.load(args.warmup_queries)
         if "reps" in z:
@@ -825,11 +848,18 @@ def main(argv=None) -> None:
             qs = [(z["q_terms"][i], z["q_vals"][i])
                   for i in range(len(z["q_terms"]))]
         print(f"warmup: {server.warmup(qs)}", file=sys.stderr)
+    if frontend is not None and args.warmup_texts:
+        with open(args.warmup_texts) as f:
+            texts = [ln.strip() for ln in f if ln.strip()]
+        print(f"encoder warmup: {frontend.warmup(texts)}", file=sys.stderr)
     server.start()
+    if frontend is not None:
+        frontend.start()
     try:
         # bound before the line is printed: with --port 0 the line names
         # the port the system picked
-        httpd = serve_http(server, args.host, args.port, block=False)
+        httpd = serve_http(server, args.host, args.port, block=False,
+                           frontend=frontend)
         print(f"serving on http://{args.host}:{httpd.server_address[1]}",
               file=sys.stderr, flush=True)
         try:
@@ -837,7 +867,39 @@ def main(argv=None) -> None:
         finally:
             httpd.server_close()
     finally:
+        if frontend is not None:
+            frontend.stop()
         server.stop()
+
+
+def _text_frontend(args, server, engine):
+    """The QueryEncoderFrontend of ``--model_name_or_path``: the encoder on
+    ``--device``, the handoff encode fn where the engine takes it."""
+    from scaling_retriever_tpu_torch.serving.text_frontend import (
+        QueryEncoderFrontend, load_sparse_encoder, make_encode_fn,
+        make_encode_fn_handoff, make_hf_tokenize_fn)
+
+    model, tokenizer = load_sparse_encoder(
+        args.model_name_or_path, args.lora_name_or_path, device=args.device)
+    if args.query_length_rungs == "none":
+        rungs = None
+    elif args.query_length_rungs == "auto":
+        rungs, r = [], 16
+        while r < args.query_max_length:
+            rungs.append(r)
+            r *= 2
+    else:
+        rungs = [int(x) for x in args.query_length_rungs.split(",")]
+    use_handoff = (args.handoff == "auto"
+                   and getattr(engine, "fetch", None) == "dma"
+                   and getattr(engine, "val_dtype", "f32") in ("f32", "q8"))
+    encode_fn = (make_encode_fn_handoff(model, args.t_sparse) if use_handoff
+                 else make_encode_fn(model, args.t_sparse))
+    return QueryEncoderFrontend(
+        server, encode_fn,
+        make_hf_tokenize_fn(tokenizer, args.query_max_length, lengths=rungs),
+        widths=[int(w) for w in args.encode_widths.split(",")],
+        t_sparse=args.t_sparse, max_wait_ms=args.max_wait_ms)
 
 
 if __name__ == "__main__":

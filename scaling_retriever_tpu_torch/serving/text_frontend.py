@@ -1,6 +1,5 @@
 """Text-in serving: a micro-batched query-encode stage in front of the
-retrieval broker (port of serving/text_frontend.py; loading a checkpoint
-from disk is not ported yet, so callers build the model themselves).
+retrieval broker (port of serving/text_frontend.py).
 
 Texts are coalesced into fixed-shape encoder tiles (a width ladder, and a
 length ladder in the tokenizer), the SPLADE forward and the top-T
@@ -31,6 +30,21 @@ import numpy as np
 import torch
 
 _STOP = object()
+
+
+def load_sparse_encoder(model_dir: str,
+                        lora_name_or_path: Optional[str] = None,
+                        device="cuda", **config_overrides):
+    """(model, tokenizer) from a checkpoint directory, with the eval CLIs'
+    dispatch (``models.encoder.load_encoder``): ``model_type`` picks the
+    encoder class, an ``adapter_config.json`` means a LoRA directory. The
+    tokenizer is the directory's, loaded by ``transformers``."""
+    from scaling_retriever_tpu_torch.models.encoder import (load_encoder,
+                                                            load_tokenizer)
+
+    model = load_encoder(model_dir, "sparse", lora_name_or_path,
+                         device=device, **config_overrides)
+    return model, load_tokenizer(model_dir)
 
 
 def make_hf_tokenize_fn(tokenizer, max_length: int = 64,

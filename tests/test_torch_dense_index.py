@@ -342,3 +342,56 @@ def test_host_store_keeps_numpy_chunks_and_builds_layout_by_rows(
     np.testing.assert_array_equal(torch.cat(ix._materialize()).numpy(),
                                   want_c)
     assert torch.cat(ix._layout[2]).numpy().tobytes() == want_s.tobytes()
+
+
+@pytest.mark.parametrize("store", ["f32_host", "bf16"])
+def test_serialize_streams_the_store_without_a_second_copy(tmp_path, store):
+    """``serialize`` writes the vectors member chunk by chunk: numpy's
+    allocations (tracemalloc) stay under a quarter of the store while it
+    runs (concatenating the chunks first, as before, allocates the whole
+    store again); the file has np.savez's members, dtypes and shapes, and
+    loads in the reference and back."""
+    import tracemalloc
+
+    rng = np.random.default_rng(10)
+    n, d, chunk = 6000, 96, 1024             # a 2.3 MB store, 6 chunks
+    v = rng.standard_normal((n, d)).astype(np.float32)
+    ix = port.DenseFlatIndexer(device="cpu", chunk=chunk)
+    ix.init_index(d)
+    ids = [f"d{i}" for i in range(n)]
+    ix.add_batch(ids, v if store == "f32_host"
+                 else torch.from_numpy(v).bfloat16())
+    want = ix._host_vectors()
+    tracemalloc.start()
+    try:
+        ix.serialize(str(tmp_path / "s"))
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < v.nbytes / 4, (peak, v.nbytes)
+    path = tmp_path / "s" / port.DenseFlatIndexer.INDEX_FILE
+    with np.load(path) as z:
+        assert z.files == ["vectors", "vector_sz"]
+        assert z["vectors"].dtype == np.float32 and z["vectors"].shape == (
+            n, d)
+        assert z["vector_sz"].dtype == np.int64 and int(z["vector_sz"]) == d
+        np.testing.assert_array_equal(z["vectors"], want)
+    np.savez(tmp_path / "plain.npz", vectors=want, vector_sz=np.int64(d))
+    with zipfile.ZipFile(path) as za, \
+            zipfile.ZipFile(tmp_path / "plain.npz") as zb:
+        for member in ("vectors.npy", "vector_sz.npy"):
+            assert za.read(member) == zb.read(member)
+    theirs = ref.DenseFlatIndexer(chunk=chunk, dtype=jnp.float32)
+    theirs.deserialize(str(tmp_path / "s"))
+    assert theirs.ntotal == n and theirs.index_id_to_db_id == ids
+    theirs.serialize(str(tmp_path / "r"))
+    back = port.DenseFlatIndexer(device="cpu", chunk=chunk,
+                                 dtype=torch.float32)
+    back.deserialize(str(tmp_path / "r"))
+    np.testing.assert_array_equal(back._host_vectors(), want)
+    # an empty index writes a [0, D] member
+    empty = port.DenseFlatIndexer(device="cpu", chunk=chunk)
+    empty.init_index(d)
+    empty.serialize(str(tmp_path / "e"))
+    with np.load(tmp_path / "e" / port.DenseFlatIndexer.INDEX_FILE) as z:
+        assert z["vectors"].shape == (0, d)
