@@ -75,13 +75,29 @@ Phases (any failure raises and exits non-zero):
      build at 1/8 of MSMARCO's depth (141M postings); a 4-chunk dense
      index streamed to disk by serialize (host memory growth under two
      chunks) and read back (a tile bit-equal);
-  8. print the card, per-kernel numbers as one JSON line, and last
+  8. training at Llama-3.2-1B width (phase 4's weights, written to disk
+     and trained from there): sparse NCE with LoRA through train_sparse's
+     body and the Trainer at the reference recipe's micro batch (8
+     queries x 17 contexts, 64 / 128 tokens, r 16, dropout 0.1), timed,
+     profiled, and learning on one fixed batch; remat full against none
+     (the same LoRA gradients, dropout on); two accumulated optimizer
+     steps, a checkpoint and a resumed step against an uninterrupted run
+     (bit-equal); the trained adapter written, merged by load_from_lora,
+     indexing generated docs and answering queries into run.json through
+     B1, B4 and B5 (launches read as in 4; == the plain-ops engine); dense
+     NCE through train_dense's body; MNTP through its CLI body at
+     configs/mntp/llama3_1b_msmarco.json's batch (32 x 512) under full
+     remat;
+  9. print the card, per-kernel numbers as one JSON line, and last
      {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -106,6 +122,7 @@ CHUNK2 = 2048
 BMX_COVER = 4.0               # block-max pass 1 covers BMX_COVER * TOPK docs
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM data sheet, non-tensor f32
+BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 
 
 # the kernels each serving path (phase 4), offline path (phase 5) and
@@ -123,6 +140,7 @@ PATH_KERNELS = {
     "dense int8": ("topm_dense",),
     "served dense": ("topm_dense",),
     "checkpoint pipeline": ("fetch_f32", "segsum", "topm"),
+    "trained adapter": ("fetch_f32", "segsum", "topm"),
 }
 
 
@@ -815,15 +833,30 @@ class StandInTokenizer:
     (``max_length``, ``padding``, ...) it answers that protocol instead,
     as the data collators call it."""
 
+    pad_token_id = 0
+    bos_token_id = eos_token_id = unk_token_id = mask_token_id = None
+
     def __init__(self, vocab: int, lengths=(16, 64)):
         self.vocab = vocab
         self.lengths = tuple(lengths)
 
+    def convert_tokens_to_ids(self, tokens):
+        """"w<id>" → its id; "_" (MNTP's blank mask token) → the last."""
+        return [self.vocab - 1 if t == "_" else int(t[1:]) % self.vocab
+                for t in tokens]
+
     def __call__(self, texts, length=None, *, truncation=False,
                  max_length=None, padding=None, pad_to_multiple_of=None,
-                 return_attention_mask=True):
+                 return_attention_mask=True, add_special_tokens=None):
         toks = [[int(w[1:]) % self.vocab for w in t.split()] for t in texts]
-        hf = max_length is not None or padding is not None
+        hf = (max_length is not None or padding is not None
+              or add_special_tokens is not None)
+        if hf and not padding:
+            # unpadded rows, as MNTP's grouping and line-by-line modes ask
+            if truncation and max_length is not None:
+                toks = [t[:max_length] for t in toks]
+            return {"input_ids": toks,
+                    "attention_mask": [[1] * len(t) for t in toks]}
         if hf:
             if truncation and max_length is not None:
                 toks = [t[:max_length] for t in toks]
@@ -2664,6 +2697,433 @@ def checkpoint_phase(dev, model, seed: int, card_s: str, tmp: str) -> dict:
     return {"checkpoint pipeline": launches}
 
 
+# ---- phase 8: training on the card
+
+TRAIN_Q, TRAIN_NEGS = 8, 16   # the recipe's micro batch (bench_train.py:3-10)
+TRAIN_QLEN, TRAIN_DLEN = 64, 128
+TRAIN_QUERIES = 64            # train.jsonl examples: 8 micro batches an epoch
+TRAIN_DOCS = 2_048
+TRAIN_STEPS = 8               # timed: the median of the last 6
+FIXED_STEPS = 6               # then one fixed batch, which the loss must fit
+# 10x the recipe's 1e-4: six steps of the recipe's rate move the loss less
+# than the dropout's noise does
+TRAIN_LR = 1e-3
+REG_T = 1000 // 3             # the recipe's ramp horizon (max_steps // 3)
+SERVE_DOCS = 4_096
+SERVE_QUERIES = 256
+DENSE_STEPS = 5
+MNTP_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "mntp", "llama3_1b_msmarco.json")
+MNTP_STEPS = 5
+MNTP_EVAL_ROWS = 64
+# remat full against none, relative L2 per LoRA gradient: the recompute
+# runs the same kernels on the same inputs (bit-equal expected); the limit
+# is bf16's unit roundoff, 2^-8
+REMAT_RTOL = 2.0 ** -8
+
+
+@contextlib.contextmanager
+def step_times():
+    """The wall time of every Trainer micro step in ms, the card
+    synchronized before and after each."""
+    from scaling_retriever_tpu_torch.training import trainer as tm
+
+    orig = tm.Trainer._train_step
+    out = []
+
+    def timed(self, batch, step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = orig(self, batch, step)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return metrics
+
+    tm.Trainer._train_step = timed
+    try:
+        yield out
+    finally:
+        tm.Trainer._train_step = orig
+
+
+def model_flops(cfg, groups, lm_head: bool, remat: bool) -> float:
+    """Model FLOPs of one micro step over ``groups`` of (rows, tokens):
+    the layers' projections and attention products, and the LM head, each
+    forward and backward to the activations (the base is frozen; the LoRA
+    factors' own products, under 1%, are left out); full remat runs the
+    layers' forward once more."""
+    h, q, kv, i = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim,
+                   cfg.intermediate_size)
+    layers = head = 0
+    for rows, seq in groups:
+        layers += 2 * rows * seq * cfg.num_hidden_layers * (
+            2 * h * q + 2 * h * kv + 3 * h * i + 2 * seq * q)
+        head += 2 * rows * seq * cfg.vocab_size * h if lm_head else 0
+    return layers * (3 if remat else 2) + head * 2
+
+
+def read_log(out: str) -> list:
+    with open(os.path.join(out, "trainer_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def step_report(label, ms, flops, tokens, peak, card_s) -> float:
+    """Log the median step after two warm-up steps; returns it."""
+    med = float(np.median(ms[2:]))
+    log(f"{label}: {med:.1f} ms per micro step (median of {len(ms) - 2} "
+        f"after 2 warm-up; all {[round(x, 1) for x in ms]}), "
+        f"{tokens / med * 1e3:.0f} tokens/s, {flops / 1e12:.1f} TFLOP per "
+        f"step, {flops / med / 1e9:.1f} TFLOP/s = "
+        f"{100 * flops / med * 1e3 / BF16_OPS_PER_S:.1f}% of the "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak, peak card "
+        f"memory {peak / 1e9:.2f} GB; card {card_s}")
+    return med
+
+
+def training_phase(dev, ckpt: str, seed: int, card_s: str, tmp: str) -> dict:
+    """Phase 8: training at Llama-3.2-1B width from the checkpoint at
+    ``ckpt``: sparse NCE timed, profiled and fitting one batch; remat full
+    against none; accumulation and resume against an uninterrupted run;
+    the trained adapter merged and served back into run.json through B1,
+    B4 and B5; dense NCE; MNTP. Returns the launch counts of the adapter's
+    retrieval path."""
+    from scaling_retriever_tpu_torch.evaluation import eval_sparse
+    from scaling_retriever_tpu_torch.models.config import ModelConfig
+    from scaling_retriever_tpu_torch.models.encoder import LlamaBiSparse
+    from scaling_retriever_tpu_torch.models.lora import (LoraConfig,
+                                                        init_lora_params)
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+    from scaling_retriever_tpu_torch.ops import segsort_scoring as ss
+    from scaling_retriever_tpu_torch.ops.pooling import sparse_pool
+    from scaling_retriever_tpu_torch.parallel.mesh import shard_batch
+    from scaling_retriever_tpu_torch.training import mntp, train_sparse
+    from scaling_retriever_tpu_torch.training.trainer import (Trainer,
+                                                             tree_leaves)
+
+    t_phase = time.perf_counter()
+
+    def lap(step: str) -> None:
+        log(f"phase 8 at {time.perf_counter() - t_phase:.1f} s: {step}")
+    log(f"phase 8 starts with {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+        f" GB allocated on the card")
+    rng = np.random.default_rng(seed + 80)
+    tok = StandInTokenizer(VOCAB)
+    cfg = ModelConfig.from_pretrained(ckpt)
+    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+
+    # generated text: query i is the start of doc i (its positive), with
+    # 24 other docs as its negatives
+    corpus = os.path.join(tmp, "train_corpus.tsv")
+    doc_words = []
+    with open(corpus, "w") as f:
+        for d in range(max(TRAIN_DOCS, SERVE_DOCS)):
+            words = [f"w{x}" for x in rng.integers(0, VOCAB, 160)]
+            doc_words.append(words)
+            f.write(f"p{d}\t{' '.join(words)}\n")
+    train_path = os.path.join(tmp, "train.jsonl")
+    with open(train_path, "w") as f:
+        for i in range(TRAIN_QUERIES):
+            negs = [int(x) for x in rng.choice(TRAIN_DOCS, 25, replace=False)
+                    if x != i][:24]
+            f.write(json.dumps({
+                "question": " ".join(doc_words[i][:80]), "pos_pid": f"p{i}",
+                "neg_pids": [f"p{x}" for x in negs]}) + "\n")
+
+    def argv(out, *extra):
+        return ["--model_name_or_path", ckpt, "--corpus_path", corpus,
+                "--train_path", train_path, "--output_dir", out,
+                "--data_source", "msmarco", "--per_device_train_batch_size",
+                str(TRAIN_Q), "--n_negs", str(TRAIN_NEGS),
+                "--query_max_length", str(TRAIN_QLEN), "--doc_max_length",
+                str(TRAIN_DLEN), "--fixed_length", "--bf16", "--lora_r", "16",
+                "--lora_alpha", "32", "--lora_dropout", "0.1",
+                "--learning_rate", str(TRAIN_LR), "--warmup_ratio", "0",
+                "--max_steps", "1000", "--logging_steps", "1", "--device",
+                str(dev), *extra]
+
+    def stop_at(trainer, steps: int) -> None:
+        # the recipe's 1000-step schedule and ramp, stopped early
+        trainer.args = dataclasses.replace(trainer.args, max_steps=steps,
+                                           reg_T=REG_T)
+
+    groups = [(TRAIN_Q, TRAIN_QLEN), (TRAIN_Q * (1 + TRAIN_NEGS), TRAIN_DLEN)]
+    tokens = sum(r * t for r, t in groups)
+
+    # ---- 1. sparse NCE with LoRA at the recipe's micro batch ----
+    lap("sparse NCE")
+    out1 = os.path.join(tmp, "sparse")
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer, _ = train_sparse.build_training(argv(out1), "sparse",
+                                             tokenizer=tok)
+    stop_at(trainer, TRAIN_STEPS)
+    with step_times() as ms:
+        trainer.train()
+    peak = torch.cuda.max_memory_allocated(dev)
+    flops = model_flops(cfg, groups, lm_head=True, remat=False)
+    step_ms = step_report(
+        f"sparse NCE, LoRA r 16, dropout 0.1, bf16, remat none, "
+        f"{TRAIN_Q} x (1 + {TRAIN_NEGS}) at {TRAIN_QLEN}/{TRAIN_DLEN} "
+        f"tokens ({tokens} tokens)", ms, flops, tokens, peak, card_s)
+    logs = read_log(out1)
+    check(len(logs) == TRAIN_STEPS and all(
+        np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"])
+        and np.isfinite(e["rank"]) for e in logs), f"sparse NCE logs {logs}")
+    real_loader = trainer.train_loader
+    fixed = shard_batch(next(iter(real_loader)), trainer.mesh)
+    trainer.train_loader = [fixed] * FIXED_STEPS
+    stop_at(trainer, TRAIN_STEPS + FIXED_STEPS)
+    trainer.train()
+    fit = [e["loss"] for e in read_log(out1)[TRAIN_STEPS:]]
+    check(all(np.isfinite(fit)) and fit[-1] < fit[0],
+          f"the loss on one fixed batch did not fall: {fit}")
+    log(f"sparse NCE on one fixed batch, learning rate {TRAIN_LR}: loss "
+        f"{[round(x, 4) for x in fit]}; every loss and grad_norm finite")
+
+    def one_step():
+        trainer.micro_step += 1
+        trainer.step += 1
+        trainer._train_step(fixed, trainer.micro_step)
+
+    profile_tile("sparse NCE micro step", one_step, card_s)
+    # the sparse head alone, forward and backward, at the step's shapes
+    free()
+    pool_ms = 0.0
+    for rows, seq in groups:
+        lg = torch.randn(rows, seq, VOCAB, device=dev, dtype=torch.bfloat16,
+                         requires_grad=True)
+        mask = torch.ones(rows, seq, dtype=torch.int32, device=dev)
+        g = torch.randn(rows, VOCAB, device=dev)
+        pool_ms += time_ms(lambda: sparse_pool(lg, mask, cfg.hidden_size)
+                           .backward(g), 5)
+        del lg, g
+        free()
+    log(f"sparse_pool forward + backward over the step's logits "
+        f"([{groups[1][0]}, {TRAIN_DLEN}, {VOCAB}] and [{TRAIN_Q}, "
+        f"{TRAIN_QLEN}, {VOCAB}], bf16): {pool_ms:.2f} ms, "
+        f"{100 * pool_ms / step_ms:.1f}% of the {step_ms:.1f} ms step; card "
+        f"{card_s}")
+
+    # ---- 2. remat full against none, dropout on ----
+    lap("remat")
+    enc = trainer.encoder
+    base_cfg = enc.params.config
+
+    def arm(remat):
+        enc.params.config = dataclasses.replace(base_cfg, remat=remat)
+        for _ in range(2):          # the second is reported
+            free()
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            total, _ = trainer._combined_loss(fixed, 1)
+            grads = torch.autograd.grad(total, trainer._leaves)
+            torch.cuda.synchronize()
+            arm_ms = (time.perf_counter() - t0) * 1e3
+        return grads, arm_ms, torch.cuda.max_memory_allocated(dev)
+
+    g_none, none_ms, none_peak = arm(False)
+    g_full, full_ms, full_peak = arm(True)
+    enc.params.config = base_cfg
+    rel = max(float((a.float() - b.float()).norm()
+                    / b.float().norm().clamp_min(1e-30))
+              for a, b in zip(g_full, g_none))
+    same = all(torch.equal(a, b) for a, b in zip(g_full, g_none))
+    check(rel <= REMAT_RTOL, f"remat full's LoRA gradients differ from "
+          f"none's by {rel:.3e} (relative L2) > {REMAT_RTOL:.3e}")
+    log(f"remat: {len(g_none)} LoRA gradients, dropout 0.1, one seed: full "
+        f"vs none {'bit-equal' if same else f'relative L2 {rel:.3e}'} "
+        f"(limit {REMAT_RTOL:.3e}); forward + backward {none_ms:.1f} ms, "
+        f"peak {none_peak / 1e9:.2f} GB (none) against {full_ms:.1f} ms, "
+        f"peak {full_peak / 1e9:.2f} GB (full); card {card_s}")
+    del g_none, g_full
+
+    # ---- 3. accumulation and resume, dropout 0 ----
+    lap("accumulation and resume")
+    lc0 = LoraConfig(r=16, lora_alpha=32, lora_dropout=0.0,
+                     base_model_name_or_path=ckpt)
+    batches = list(itertools.islice(iter(real_loader), 6))
+
+    def run(out, stop=None, resume=None):
+        g = torch.Generator(device=dev).manual_seed(seed + 81)
+        e = LlamaBiSparse(enc.params, base_cfg,
+                          init_lora_params(base_cfg, lc0, g, device=dev), lc0)
+        args = dataclasses.replace(
+            trainer.args, output_dir=out, lora_dropout=0.0,
+            gradient_accumulation_steps=2, max_steps=3, save_steps=None,
+            resume_from_checkpoint=resume)
+        tr = Trainer(e, args, list(batches), mesh=trainer.mesh)
+        if stop is not None:
+            tr.args = dataclasses.replace(args, max_steps=stop)
+        tr.train()
+        return tr
+
+    straight = run(os.path.join(tmp, "straight"))
+    cut = run(os.path.join(tmp, "cut"), stop=2)
+    ckpt_dir = cut.save_checkpoint()
+    resumed = run(os.path.join(tmp, "cut"), resume=ckpt_dir)
+    a, b = tree_leaves(straight.trainable), tree_leaves(resumed.trainable)
+    check(resumed.step == straight.step == 3
+          and resumed.micro_step == straight.micro_step == 6
+          and all(pa == pb and torch.equal(ta, tb)
+                  for (pa, ta), (pb, tb) in zip(a, b)),
+          "the resumed run's trainable differs from the uninterrupted run's")
+    size = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+               for f in os.listdir(ckpt_dir))
+    log(f"accumulation and resume: gas 2, 2 optimizer steps, "
+        f"save_checkpoint ({size / 1e6:.1f} MB), a fresh Trainer resumed "
+        f"for step 3: {len(a)} factors bit-equal to the uninterrupted run's "
+        f"(dropout 0)")
+    del straight, cut, resumed, a, b
+    free()
+
+    # ---- 4. the trained adapter served back through B1, B4 and B5 ----
+    lap("trained adapter")
+    adapter = os.path.join(tmp, "adapter")
+    trainer.save_model(adapter)
+    b_max = max(float(t.detach().abs().max())
+                for p_, t in tree_leaves(trainer.trainable)
+                if p_.endswith(".b"))
+    check(b_max > 0, "training left every B factor at zero")
+    merged = LlamaBiSparse.load_from_lora(adapter, device=dev, **bf16)
+    base = LlamaBiSparse.load(ckpt, device=dev, **bf16)
+    probe = [" ".join(doc_words[d][:48]) for d in range(TILE)]
+    ids, mask = tok(probe, length=64)
+    unmerged = enc.encode(ids, mask)
+    d_merge = rel_l2(merged.encode(ids, mask), unmerged)
+    d_adapter = rel_l2(unmerged, base.encode(ids, mask))
+    del base
+    check(d_merge <= MERGE_RTOL, f"merged reps differ from the trained "
+          f"model's by {d_merge:.4f} (relative L2) > {MERGE_RTOL}")
+    log(f"trained adapter: save_model, load_from_lora merged; relative L2 "
+        f"of {TILE} reps: merged vs the unmerged trained model {d_merge:.4f}"
+        f" (limit {MERGE_RTOL}), trained vs base {d_adapter:.4f}; largest "
+        f"|B| {b_max:.4f}")
+    del trainer, enc, fixed, batches, real_loader, unmerged
+    free()
+    idx_dir = os.path.join(tmp, "trained_index")
+    serve_corpus = os.path.join(tmp, "serve_corpus.tsv")
+    with open(serve_corpus, "w") as f:
+        for d in range(SERVE_DOCS):
+            f.write(f"p{d}\t{' '.join(doc_words[d])}\n")
+    t0 = time.perf_counter()
+    out = eval_sparse.sparse_index(eval_sparse.build_parser().parse_args(
+        ["--task_name", "indexing", "--corpus_path", serve_corpus,
+         "--index_dir", idx_dir, "--eval_batch_size", str(TILE),
+         "--doc_max_length", str(TRAIN_DLEN), "--data_source", "msmarco",
+         "--index_sparsify_t", str(CKPT_T), "--device", str(dev)]),
+        model=TopKReps(merged, CKPT_L0_D), tokenizer=tok)
+    index_s = time.perf_counter() - t0
+    index = out["index"]
+    qpath = os.path.join(tmp, "trained_queries.tsv")
+    picks = rng.choice(SERVE_DOCS, SERVE_QUERIES, replace=False)
+    with open(qpath, "w") as f:
+        for i, d in enumerate(picks):
+            f.write(f"q{i}\t{' '.join(doc_words[d][:CKPT_QUERY_WORDS])}\n")
+    reps_path = os.path.join(tmp, "trained_reps.npz")
+
+    def args(task, out_dir, *extra):
+        return eval_sparse.build_parser().parse_args(
+            ["--task_name", task, "--index_dir", idx_dir, "--out_dir",
+             out_dir, "--query_path", qpath, "--data_source", "msmarco",
+             "--eval_batch_size", "128", "--query_max_length", "64",
+             "--top_k", str(TOPK), "--device", str(dev), *extra])
+
+    eval_sparse.encode_queries(args("encode_queries", tmp,
+                                    "--query_reps_path", reps_path,
+                                    "--reps_format", "sparse"),
+                               model=TopKReps(merged, L0_Q), tokenizer=tok)
+    cuda_lib.reset_launches()
+    run_dir = os.path.join(tmp, "trained_run")
+    t0 = time.perf_counter()
+    eval_sparse.sparse_retrieval(args("retrieval", run_dir,
+                                      "--query_reps_path", reps_path))
+    ret_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    with open(os.path.join(run_dir, "run.json")) as f:
+        run_kernels = json.load(f)
+    z = np.load(reps_path, allow_pickle=True)
+    qids = [f"q{i}" for i in range(SERVE_QUERIES)]
+    check(z["ids"].tolist() == qids, "query_reps ids")
+    plain = ss.SegsortEngine(index, topk=TOPK, ops=ss.PLAIN, device=dev)
+    same_run(run_kernels, engine_run(plain, z["q_terms"], z["q_vals"], qids,
+                                     index.doc_ids, index.nb_docs()),
+             qids, 1e-5, "the trained adapter's run: kernel vs plain path")
+    log(f"trained adapter served: {SERVE_DOCS} docs indexed through "
+        f"eval_sparse's body in {index_s:.1f} s ({index.nnz} postings), "
+        f"{SERVE_QUERIES} doc-prefix queries into run.json in {ret_s:.2f} s "
+        f"== the plain-ops engine (tie-equal, rtol 1e-5); launches "
+        f"{launches}; card {card_s}")
+    del merged, plain, index, out
+    free()
+
+    # ---- 5. dense NCE ----
+    lap("dense NCE")
+    out5 = os.path.join(tmp, "dense")
+    torch.cuda.reset_peak_memory_stats(dev)
+    # train_dense's body: train_sparse's with the dense pooling
+    trainer, _ = train_sparse.build_training(
+        argv(out5, "--T", "0.01"), "dense", tokenizer=tok)
+    stop_at(trainer, DENSE_STEPS)
+    with step_times() as ms:
+        trainer.train()
+    peak = torch.cuda.max_memory_allocated(dev)
+    logs = read_log(out5)
+    check(trainer.encoder.T == 0.01 and len(logs) == DENSE_STEPS and all(
+        np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"])
+        for e in logs), f"dense NCE logs {logs}")
+    step_report("dense NCE, T 0.01, LoRA r 16, dropout 0.1, bf16, remat "
+                "none, the same micro batch", ms,
+                model_flops(cfg, groups, lm_head=False, remat=False), tokens,
+                peak, card_s)
+    del trainer
+    free()
+
+    # ---- 6. MNTP at the 1B recipe's batch, full remat ----
+    lap("MNTP")
+    with open(MNTP_CONFIG) as f:
+        mcfg = json.load(f)
+    rows, seq = mcfg["per_device_train_batch_size"], mcfg["max_seq_length"]
+    files = {}
+    for name, n_rows in (("train", MNTP_STEPS * rows),
+                         ("dev", MNTP_EVAL_ROWS)):
+        files[name] = os.path.join(tmp, f"mntp_{name}.tsv")
+        n_docs = -(-n_rows * seq // 200) + 1
+        with open(files[name], "w") as f:
+            for d in range(n_docs):
+                words = rng.integers(0, VOCAB - 1, 200)
+                f.write(f"m{d}\t{' '.join(f'w{x}' for x in words)}\n")
+    out6 = os.path.join(tmp, "mntp")
+    torch.cuda.reset_peak_memory_stats(dev)
+    with step_times() as ms:
+        mtrainer = mntp.main(
+            ["--config_json", MNTP_CONFIG, "--model_name_or_path", ckpt,
+             "--train_file", files["train"], "--validation_file",
+             files["dev"], "--output_dir", out6, "--stop_after_n_steps",
+             str(MNTP_STEPS), "--logging_steps", "1", "--remat", "full",
+             "--device", str(dev)], tokenizer=tok)
+    peak = torch.cuda.max_memory_allocated(dev)
+    logs = read_log(out6)
+    with open(os.path.join(out6, "eval_results.json")) as f:
+        ev = json.load(f)
+    check(mtrainer.step == MNTP_STEPS and mtrainer.encoder.config.remat
+          is True and mtrainer.encoder.params.final_norm.dtype
+          == torch.bfloat16 and all(np.isfinite(e["loss"]) for e in logs
+                                    if "loss" in e)
+          and np.isfinite(ev["eval_loss"]), f"MNTP logs {logs}, eval {ev}")
+    step_report(f"MNTP ({os.path.basename(MNTP_CONFIG)}: {rows} x {seq}, mlm "
+                f"{mcfg['mlm_probability']}, mask {mcfg['mask_token_type']}, "
+                f"r {mcfg['lora_r']}, bf16), remat full", ms[:MNTP_STEPS],
+                model_flops(cfg, [(rows, seq)], lm_head=True, remat=True),
+                rows * seq, peak, card_s)
+    log(f"MNTP eval over {MNTP_EVAL_ROWS} rows: loss {ev['eval_loss']:.4f},"
+        f" accuracy {ev['eval_accuracy']:.4f}")
+    del mtrainer
+    free()
+    log(f"phase 8 (training): {time.perf_counter() - t_phase:.1f} s; card "
+        f"{card_s}")
+    return {"trained adapter": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2692,7 +3152,7 @@ def main(argv=None) -> int:
 
 
 def run(dev, seed: int, card_s: str) -> list:
-    """Phases 2-7 on ``dev``; returns the per-kernel report entries."""
+    """Phases 2-8 on ``dev``; returns the per-kernel report entries."""
     from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
 
     t0 = time.perf_counter()
@@ -2764,6 +3224,24 @@ def run(dev, seed: int, card_s: str) -> list:
     for path, counts in ckpt.items():
         log(f"launches over the {path} path: {counts}")
     paths.update(ckpt)
+    log("phase 7: the offline pipeline from a checkpoint on disk (1B "
+        "checkpoint and adapter, indexing, queries to run.json) through B1, "
+        "B4 and B5")
+    with tempfile.TemporaryDirectory() as tmp:
+        from scaling_retriever_tpu_torch.models.hf_loader import \
+            save_pretrained
+
+        save_pretrained(model.params, model.config, os.path.join(tmp, "ckpt"))
+        del model
+        free()
+        trained = training_phase(dev, os.path.join(tmp, "ckpt"), seed,
+                                 card_s, tmp)
+    for path, counts in trained.items():
+        log(f"launches over the {path} path: {counts}")
+    paths.update(trained)
+    log("phase 8: training at Llama-3.2-1B width (sparse NCE, remat, "
+        "accumulation and resume, dense NCE, MNTP), the trained adapter "
+        "served through B1, B4 and B5")
     report.append(entry)
     for path, kernels in PATH_KERNELS.items():
         missing = [k_ for k_ in kernels if paths[path][k_] == 0]
@@ -2773,9 +3251,6 @@ def run(dev, seed: int, card_s: str) -> list:
         r["launches"] = sum(p_[r["name"]] for p_ in paths.values())
     check(all(r["launches"] > 0 for r in report),
           f"a kernel was not launched on the main paths: {paths}")
-    log("phase 7: the offline pipeline from a checkpoint on disk (1B "
-        "checkpoint and adapter, indexing, queries to run.json) through B1, "
-        "B4 and B5")
     return report
 
 

@@ -1,12 +1,13 @@
-"""Inference collators (port of the collection collators of
-data/collators.py): (id, text) batches tokenized into numpy arrays.
+"""Collators (port of data/collators.py): the training collators, one per
+loss's batch layout, and the collection collators of (id, text) batches,
+each tokenizing into numpy arrays.
 
 The tokenizer is any callable with the Hugging Face call protocol:
 ``tokenizer(texts, truncation=True, max_length=..., padding="longest" or
 "max_length", pad_to_multiple_of=..., return_attention_mask=True)``
 returning ``input_ids`` and ``attention_mask``. ``fixed_length`` pads to
-``max_length`` (one tensor shape per length). The training collators wait
-for the training slice (ROADMAP A11).
+``max_length`` (one tensor shape per length). ``target_labels`` is named so
+to keep it apart from a trainer's own labels, as in the reference.
 """
 
 from __future__ import annotations
@@ -27,6 +28,107 @@ def _tokenize(tokenizer, texts, max_length: int,
         "input_ids": np.asarray(enc["input_ids"], np.int32),
         "attention_mask": np.asarray(enc["attention_mask"], np.int32),
     }
+
+
+class _Base:
+    def __init__(self, tokenizer, query_max_length: int, doc_max_length: int,
+                 pad_to_multiple_of: Optional[int] = 8,
+                 fixed_length: bool = False):
+        self.tokenizer = tokenizer
+        self.query_max_length = query_max_length
+        self.doc_max_length = doc_max_length
+        self.pad_to_multiple_of = pad_to_multiple_of
+        self.fixed_length = fixed_length
+
+    def _tok_q(self, texts):
+        return _tokenize(self.tokenizer, texts, self.query_max_length,
+                         self.pad_to_multiple_of, self.fixed_length)
+
+    def _tok_d(self, texts):
+        return _tokenize(self.tokenizer, texts, self.doc_max_length,
+                         self.pad_to_multiple_of, self.fixed_length)
+
+
+def _teacher(pos_score, neg_scores, n_negs: int) -> np.ndarray:
+    teacher = np.asarray([[p] + list(n) for p, n in zip(pos_score,
+                                                        neg_scores)],
+                         np.float32)
+    if teacher.shape != (len(pos_score), n_negs + 1):
+        raise ValueError(f"teacher scores of shape {teacher.shape}, "
+                         f"expected ({len(pos_score)}, {n_negs + 1})")
+    return teacher
+
+
+class LlamaSparseCollatorForNCE(_Base):
+    """queries; contexts [pos..., then each query's negs]; labels arange."""
+
+    def __call__(self, batch):
+        queries, pos_texts, batch_neg_texts = [list(x) for x in zip(*batch)]
+        texts = pos_texts + [n for negs in batch_neg_texts for n in negs]
+        return {
+            "tokenized_queries": self._tok_q(queries),
+            "tokenized_contexts": self._tok_d(texts),
+            "target_labels": np.arange(len(queries), dtype=np.int32),
+        }
+
+
+class LlamaSparseCollatorForKLDiv(_Base):
+    """queries; contexts [pos, negs...] per query; teacher scores."""
+
+    def __call__(self, batch):
+        queries, pos_texts, batch_neg_texts, pos_score, neg_scores = \
+            [list(x) for x in zip(*batch)]
+        texts = []
+        for pos, negs in zip(pos_texts, batch_neg_texts):
+            texts.extend([pos] + list(negs))
+        return {
+            "tokenized_queries": self._tok_q(queries),
+            "tokenized_contexts": self._tok_d(texts),
+            "teacher_scores": _teacher(pos_score, neg_scores,
+                                       len(batch_neg_texts[0])),
+        }
+
+
+class LlamaSparseCollatorForNCE_KLDiv(_Base):
+    """The NCE layout plus teacher scores and ``teacher_idxes``, which map
+    each query's [pos, negs...] to columns of the [bz, bz * (1 + n)]
+    logits."""
+
+    def __call__(self, batch):
+        queries, pos_texts, batch_neg_texts, pos_score, neg_scores = \
+            [list(x) for x in zip(*batch)]
+        texts = pos_texts + [n for negs in batch_neg_texts for n in negs]
+        bz, num_neg = len(queries), len(batch_neg_texts[0])
+        teacher_idxes = np.asarray(
+            [[i] + list(range(bz + i * num_neg, bz + (i + 1) * num_neg))
+             for i in range(bz)], np.int32)
+        return {
+            "tokenized_queries": self._tok_q(queries),
+            "tokenized_contexts": self._tok_d(texts),
+            "target_labels": np.arange(bz, dtype=np.int32),
+            "teacher_scores": _teacher(pos_score, neg_scores, num_neg),
+            "teacher_idxes": teacher_idxes,
+        }
+
+
+class LlamaSparseCollatorForMarginMSE(_Base):
+    """(query, pos, neg) and their teacher scores."""
+
+    def __call__(self, batch):
+        query, pos_doc, neg_doc, pos_score, neg_score = zip(*batch)
+        return {
+            "tokenized_query": self._tok_q(query),
+            "pos_tokenized_doc": self._tok_d(pos_doc),
+            "neg_tokenized_doc": self._tok_d(neg_doc),
+            "teacher_pos_scores": np.asarray(pos_score, np.float32),
+            "teacher_neg_scores": np.asarray(neg_score, np.float32),
+        }
+
+
+LlamaDenseCollatorForNCE = LlamaSparseCollatorForNCE
+LlamaDenseCollatorForKLDiv = LlamaSparseCollatorForKLDiv
+LlamaDenseCollatorForNCE_KLDiv = LlamaSparseCollatorForNCE_KLDiv
+LlamaDenseCollatorForMarginMSE = LlamaSparseCollatorForMarginMSE
 
 
 class LlamaSparseCollectionCollator:

@@ -1,10 +1,13 @@
-"""Map-style inference datasets (port of the inference classes of
-data/datasets.py): any object with ``__len__``/``__getitem__`` feeds
-``data/loader.py``'s DataLoader. The training datasets wait for the
-training slice (ROADMAP A11)."""
+"""Map-style datasets (port of data/datasets.py): the training datasets,
+which draw negatives with Python's ``random.Random(seed)`` as the
+reference does (so both packages draw the same ones), and the inference
+datasets. Any object with ``__len__``/``__getitem__`` feeds
+``data/loader.py``'s DataLoader."""
 
 from __future__ import annotations
 
+import json
+import random
 from typing import Optional
 
 from scaling_retriever_tpu_torch.data.io import (
@@ -18,6 +21,92 @@ def _read_corpus(corpus_path: str, data_source: str):
     if data_source == "msmarco":
         return read_msmarco_corpus(corpus_path)
     raise ValueError("data_source must be either wiki or msmarco")
+
+
+class DualEncoderDatasetForNCE:
+    """(query, pos_text, [neg_texts]), negatives drawn afresh per item."""
+
+    def __init__(self, corpus_path: str, train_path: str, data_source: str,
+                 n_negs: int = 1, seed: Optional[int] = None):
+        self.pid_to_doc = _read_corpus(corpus_path, data_source)
+        self.examples = []
+        with open(train_path) as fin:
+            for line in fin:
+                ex = json.loads(line)
+                self.examples.append((ex["question"], ex["pos_pid"],
+                                      ex["neg_pids"]))
+        self.n_negs = n_negs
+        self.data_source = data_source
+        self.rng = random.Random(seed)
+
+    def __len__(self):
+        return len(self.examples)
+
+    def __getitem__(self, idx):
+        query, pos_pid, neg_pids = self.examples[idx]
+        if self.data_source == "wiki" and len(neg_pids) < self.n_negs:
+            # wiki can run short of negatives: draw with replacement
+            sample_neg_pids = self.rng.choices(neg_pids, k=self.n_negs)
+        else:
+            sample_neg_pids = self.rng.sample(neg_pids, k=self.n_negs)
+        pos_text = get_doc_text(*self.pid_to_doc[pos_pid])
+        neg_texts = [get_doc_text(*self.pid_to_doc[p])
+                     for p in sample_neg_pids]
+        return query, pos_text, neg_texts
+
+
+class DualEncoderDatasetForMarginMSE:
+    """(query, pos_doc, a random neg_doc, pos_score, neg_score)."""
+
+    def __init__(self, corpus_path: str, train_path: str, data_source: str,
+                 seed: Optional[int] = None):
+        self.pid_to_doc = _read_corpus(corpus_path, data_source)
+        with open(train_path) as fin:
+            self.examples = [json.loads(line) for line in fin]
+        self.rng = random.Random(seed)
+
+    def __len__(self):
+        return len(self.examples)
+
+    def __getitem__(self, idx):
+        ex = self.examples[idx]
+        query, docids, scores = ex["query"], ex["docids"], ex["scores"]
+        neg_idx = self.rng.randrange(1, len(docids))
+        return (query, get_doc_text(*self.pid_to_doc[docids[0]]),
+                get_doc_text(*self.pid_to_doc[docids[neg_idx]]), scores[0],
+                scores[neg_idx])
+
+
+class DualEncoderDatasetForKLDiv:
+    """(query, pos, [negs], pos_score, [neg_scores]); MSMARCO only."""
+
+    def __init__(self, corpus_path: str, train_path: str, data_source: str,
+                 n_negs: int = 1, seed: Optional[int] = None):
+        if data_source != "msmarco":
+            raise ValueError("data_source must be either wiki or msmarco")
+        self.pid_to_doc = read_msmarco_corpus(corpus_path)
+        self.examples = []
+        with open(train_path) as fin:
+            for line in fin:
+                ex = json.loads(line)
+                self.examples.append((ex["question"], ex["pos_pid"],
+                                      ex["neg_pids"], ex["pos_score"],
+                                      ex["neg_scores"]))
+        self.n_negs = n_negs
+        self.rng = random.Random(seed)
+
+    def __len__(self):
+        return len(self.examples)
+
+    def __getitem__(self, idx):
+        query, pos_pid, neg_pids, pos_score, neg_scores = self.examples[idx]
+        if len(neg_pids) != len(neg_scores):
+            raise ValueError(f"example {idx}: {len(neg_pids)} negatives, "
+                             f"{len(neg_scores)} scores")
+        sel = self.rng.sample(range(len(neg_pids)), k=self.n_negs)
+        neg_texts = [get_doc_text(*self.pid_to_doc[neg_pids[i]]) for i in sel]
+        return (query, get_doc_text(*self.pid_to_doc[pos_pid]), neg_texts,
+                pos_score, [neg_scores[i] for i in sel])
 
 
 class CollectionDataset:

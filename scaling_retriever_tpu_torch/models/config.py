@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -55,6 +55,12 @@ class ModelConfig:
     model_type: str = "llama"
     dtype: torch.dtype = torch.float32        # activation dtype
     param_dtype: torch.dtype = torch.float32  # parameter storage dtype
+    # per-layer rematerialization under autograd, in the reference's
+    # values: False (none), True (full: nothing saved inside a layer),
+    # "dots_saveable" / "dots_with_no_batch_dims_saveable" (matmul outputs
+    # saved; the latter not the attention products), or "names:..." over
+    # the layer's named tensors (models/llama.py REMAT_NAMES)
+    remat: Any = False
 
     @property
     def head_dim_(self) -> int:

@@ -1,14 +1,15 @@
 """Retriever encoders (port of models/encoder.py): the sparse and dense
-classes of the Llama, Qwen2 and Mistral families, their checkpoint and
-adapter loading, and the model registry. The training losses are not
-ported yet (ROADMAP A11), nor is the T5 family (A12).
+classes of the Llama, Qwen2 and Mistral families, their training losses
+(``loss_forward``), checkpoint and adapter loading and saving, and the
+model registry. The T5 family is not ported yet (ROADMAP A12).
 
 ``LLM2Retriever`` owns (params, lora, config). ``params`` is the
 ``LlamaBiForMNTP`` module holding the weights, the counterpart of the JAX
 package's parameter tree. ``POOLING`` picks the head, as in the reference:
 "sparse" pools the LM-head logits (``sparse_pool``), "dense" mean-pools the
 L2-normalized final hidden states (``dense_pool``) and never touches the
-LM head.
+LM head. Training calls ``loss_forward`` with autograd on; ``encode`` runs
+under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ from typing import Optional
 
 import torch
 
+from scaling_retriever_tpu_torch.models import losses
 from scaling_retriever_tpu_torch.models.config import ModelConfig
 from scaling_retriever_tpu_torch.models.hf_loader import (load_pretrained,
                                                          save_pretrained)
-from scaling_retriever_tpu_torch.models.llama import LlamaBiForMNTP
+from scaling_retriever_tpu_torch.models.llama import LlamaBiForMNTP, fold_in
 from scaling_retriever_tpu_torch.models.lora import (LoraConfig,
                                                     init_lora_params,
                                                     load_adapter, merge_lora,
@@ -87,21 +89,72 @@ class LLM2Retriever:
         return self.config.hidden_size
 
     def encode_pure(self, params: LlamaBiForMNTP, lora: Optional[dict],
-                    input_ids: torch.Tensor,
-                    attention_mask: torch.Tensor) -> torch.Tensor:
+                    input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                    dropout_seed: Optional[int] = None) -> torch.Tensor:
         """[B, S] ids and mask on the model's device → [B, V] (sparse) or
-        [B, H] (dense) f32 reps."""
-        scale = (self.lora_config.scaling
-                 if lora is not None and self.lora_config else 0.0)
+        [B, H] (dense) f32 reps. ``dropout_seed`` turns the LoRA dropout
+        on (training)."""
+        on = lora is not None and self.lora_config is not None
+        scale = self.lora_config.scaling if on else 0.0
+        drop = self.lora_config.lora_dropout if on else 0.0
         if self.POOLING == "sparse":
             logits = params.forward_logits(input_ids, attention_mask, lora,
-                                           scale)
+                                           scale, drop, dropout_seed)
             return sparse_pool(logits, attention_mask, self.config.hidden_size)
-        hidden = params.forward_hidden(input_ids, attention_mask, lora, scale)
+        hidden = params.forward_hidden(input_ids, attention_mask, lora, scale,
+                                       drop, dropout_seed)
         return dense_pool(hidden, attention_mask)
 
-    def loss_forward(self, params, lora, batch, dropout_rng=None) -> dict:
-        raise _not_ported(f"the {self.LOSS_TYPE} training loss", "A11")
+    def loss_forward(self, params: LlamaBiForMNTP, lora: Optional[dict],
+                     batch: dict, dropout_seed: Optional[int] = None) -> dict:
+        """The task losses of one batch, as the collators of
+        ``data/collators.py`` lay it out (numpy arrays or tensors). Each
+        encode call draws its dropout from ``fold_in(dropout_seed, call)``.
+        The sparse head adds the FLOPS regularizers ``query_reg`` and
+        ``doc_reg``; the dense head divides by ``T``, the sparse by 1."""
+        dev = params.device
+        counter = [0]
+
+        def enc(input_ids, attention_mask):
+            seed = (None if dropout_seed is None
+                    else fold_in(dropout_seed, counter[0]))
+            counter[0] += 1
+            return self.encode_pure(
+                params, lora, torch.as_tensor(input_ids, device=dev),
+                torch.as_tensor(attention_mask, device=dev), seed)
+
+        def arr(name):
+            return torch.as_tensor(batch[name], device=dev)
+
+        T = self.T if self.POOLING == "dense" else 1.0
+        lt = self.LOSS_TYPE
+        if lt == "margin_mse":
+            q = enc(**batch["tokenized_query"])
+            p = enc(**batch["pos_tokenized_doc"])
+            n = enc(**batch["neg_tokenized_doc"])
+            rank = losses.margin_mse_loss(q, p, n, arr("teacher_pos_scores"),
+                                          arr("teacher_neg_scores"), T)
+            if self.POOLING == "sparse":
+                return {"rank": rank, "query_reg": losses.flops(q),
+                        "doc_reg": (losses.flops(p) + losses.flops(n)) / 2.0}
+            return {"rank": rank}
+        if lt not in ("nce", "kldiv", "nce_kldiv"):
+            raise NotImplementedError(lt)
+        q = enc(**batch["tokenized_queries"])
+        c = enc(**batch["tokenized_contexts"])
+        if lt == "nce":
+            out = {"rank": losses.nce_loss(q, c, arr("target_labels"), T)}
+        elif lt == "kldiv":
+            out = {"rank": losses.kldiv_loss(q, c, arr("teacher_scores"), T)}
+        else:
+            rank, nce, kl = losses.nce_kldiv_loss(
+                q, c, arr("target_labels"), arr("teacher_scores"),
+                arr("teacher_idxes"), T)
+            out = {"rank": rank, "nce": nce, "kldiv": kl}
+        if self.POOLING == "sparse":
+            out["query_reg"] = losses.flops(q)
+            out["doc_reg"] = losses.flops(c)
+        return out
 
     @torch.inference_mode()
     def encode(self, input_ids, attention_mask) -> torch.Tensor:
@@ -140,9 +193,15 @@ class LLM2Retriever:
         else:
             save_pretrained(self.params, self.config, save_dir)
 
-    def save_trained(self, trainable: dict, out_dir: str,
+    @torch.no_grad()
+    def save_trained(self, trainable, out_dir: str,
                      use_lora: bool = True) -> None:
-        raise _not_ported("saving a trained artifact (training)", "A11")
+        """The trainer's artifact: a peft adapter from the LoRA factors, or
+        an HF checkpoint of the whole module (``--no_lora``)."""
+        if use_lora and self.lora_config is not None:
+            save_adapter(trainable, self.lora_config, out_dir)
+        else:
+            save_pretrained(trainable, self.config, out_dir)
 
     # -- constructors -------------------------------------------------------
 
@@ -157,7 +216,8 @@ class LLM2Retriever:
               **config_overrides) -> "LLM2Retriever":
         """Training setup: base weights plus a newly initialized LoRA when
         ``args.lora`` (``generator`` seeds it; seed 0 on ``device`` by
-        default)."""
+        default). ``config_overrides`` reach the model config (``dtype``,
+        ``param_dtype``, ``remat``)."""
         model_dir = _resolve_model_dir(model_name_or_path)
         overrides = dict(config_overrides)
         if config:
@@ -184,8 +244,9 @@ class LLM2Retriever:
              lora_name_or_path: Optional[str] = None, merge_peft: bool = True,
              is_trainable: bool = False, T: float = 0.01, device="cuda",
              **config_overrides) -> "LLM2Retriever":
-        """Inference setup: base weights on ``device``, plus an optional
-        adapter, merged by default."""
+        """Base weights on ``device``, plus an optional adapter: merged by
+        default, kept apart with ``merge_peft=False``, and kept apart with
+        its factors requiring grad (to train on) with ``is_trainable``."""
         model_dir = _resolve_model_dir(model_name_or_path)
         params, model_config = load_pretrained(model_dir, device=device,
                                                **config_overrides)
@@ -194,7 +255,12 @@ class LLM2Retriever:
             lora, lora_config = load_adapter(
                 _resolve_model_dir(lora_name_or_path), model_config,
                 device=device)
-            if merge_peft:
+            if is_trainable:
+                for group in lora["layers"].values():
+                    for fac in group.values():
+                        for t in fac.values():
+                            t.requires_grad_(True)
+            elif merge_peft:
                 params = merge_lora(params, lora, lora_config)
                 lora = lora_config = None
         t = T if cls.POOLING == "dense" else 1.0

@@ -11,21 +11,56 @@ ids are ``arange(seq_len)`` including pad positions.
 Projections are ``nn.Linear`` modules (weight [out, in]); the JAX package
 stores [in, out] and ``models/weights.py`` transposes on the way in. LoRA
 factors (the reference's stacked ``{"a": [L, in, r], "b": [L, r, out]}``
-layout) ride as an optional additive branch for inference.
+layout) ride as an optional additive branch.
+
+Training runs the same forward under autograd. LoRA dropout (inverted, on
+the branch's input only) is on only when a ``dropout_seed`` is passed;
+each mask is drawn from a generator seeded by (seed, layer, slot) through
+``fold_in``, so a layer that ``config.remat`` recomputes in the backward
+draws the same masks again. ``remat`` takes the reference's values: full
+remat checkpoints each layer; the dots policies save the matmul outputs
+(torch's selective activation checkpointing); the named policies save the
+layer's named tensors (``REMAT_NAMES``) by checkpointing the stages
+between them.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from scaling_retriever_tpu_torch.models.config import ModelConfig
 
 MASK_VALUE = -1e9
+_M64 = (1 << 64) - 1
+
+# the tensors a "names:..." remat policy may save, in layer order, and the
+# two sets the reference's CLIs name ("attn", "attn_mlp")
+REMAT_NAMES = ("attn_q", "attn_k", "attn_v", "attn_out", "mlp_mid")
+_NAMED_SETS = {REMAT_NAMES[:4]: False, REMAT_NAMES: True}
+# the matmul ops of a layer under autograd: projections reach mm/addmm, the
+# attention einsums bmm (the reference's dots with batch dimensions)
+_DOTS = {"dots_saveable": (torch.ops.aten.mm.default,
+                           torch.ops.aten.addmm.default,
+                           torch.ops.aten.bmm.default),
+         "dots_with_no_batch_dims_saveable": (torch.ops.aten.mm.default,
+                                              torch.ops.aten.addmm.default)}
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A 63-bit seed from (seed, data) by splitmix64: the port's
+    counterpart of ``jax.random.fold_in`` (other bits, the same role)."""
+    z = (seed ^ ((data + 1) * 0x9E3779B97F4A7C15)) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) & ((1 << 63) - 1)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -91,11 +126,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 def dense(x: torch.Tensor, linear: nn.Linear, lora: Optional[dict] = None,
-          lora_scale: float = 0.0) -> torch.Tensor:
-    """``linear(x)`` plus an optional LoRA branch ``(x @ A) @ B * s``."""
+          lora_scale: float = 0.0, lora_dropout: float = 0.0,
+          dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """``linear(x)`` plus an optional LoRA branch ``(x @ A) @ B * s``, with
+    inverted dropout on the branch's input when ``dropout_seed`` is given
+    (the mask drawn from a generator seeded with it)."""
     y = linear(x)
     if lora is not None:
-        y = y + (x @ lora["a"].to(x.dtype)) @ lora["b"].to(x.dtype) * lora_scale
+        xl = x
+        if lora_dropout > 0.0 and dropout_seed is not None:
+            keep = 1.0 - lora_dropout
+            g = torch.Generator(device=x.device).manual_seed(dropout_seed)
+            mask = torch.rand(x.shape, generator=g, device=x.device) < keep
+            xl = torch.where(mask, x / keep, 0.0).to(x.dtype)
+        y = y + (xl @ lora["a"].to(x.dtype)) @ lora["b"].to(x.dtype) * lora_scale
     return y
 
 
@@ -123,7 +167,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class LlamaLayer(nn.Module):
-    """Pre-norm attention + SwiGLU MLP, bidirectional."""
+    """Pre-norm attention + SwiGLU MLP, bidirectional. The forward runs as
+    four stages (q/k/v, attention output, MLP mid, MLP output) so that a
+    named remat policy can checkpoint the stages between the tensors it
+    saves."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -141,26 +188,83 @@ class LlamaLayer(nn.Module):
         self.input_norm = nn.Parameter(torch.ones(h, dtype=dt))
         self.post_attn_norm = nn.Parameter(torch.ones(h, dtype=dt))
 
-    def forward(self, h, bias, cos, sin, config: ModelConfig,
-                lora: Optional[dict] = None, lora_scale: float = 0.0):
+    def _dn(self, x, name, group, slot, c):
+        fac = None if c["lora"] is None else c["lora"].get(group, {}).get(name)
+        seed = (None if c["seed"] is None else fold_in(c["seed"], slot))
+        return dense(x, getattr(self, name), fac, c["scale"], c["dropout"],
+                     seed)
+
+    def _qkv(self, h, c):
+        cfg = c["config"]
         b_, s, _ = h.shape
-        nq, nkv, hd = (config.num_attention_heads,
-                       config.num_key_value_heads, config.head_dim_)
+        nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                       cfg.head_dim_)
+        x = rms_norm(h, self.input_norm, cfg.rms_norm_eps)
+        q = self._dn(x, "wq", "attn", 0, c).reshape(b_, s, nq, hd)
+        k = self._dn(x, "wk", "attn", 1, c).reshape(b_, s, nkv, hd)
+        v = self._dn(x, "wv", "attn", 2, c).reshape(b_, s, nkv, hd)
+        return (apply_rope(q, c["cos"], c["sin"]),
+                apply_rope(k, c["cos"], c["sin"]), v)
 
-        def dn(x, name, group):
-            fac = None if lora is None else lora.get(group, {}).get(name)
-            return dense(x, getattr(self, name), fac, lora_scale)
+    def _attn_out(self, q, k, v, c):
+        return self._dn(attention(q, k, v, c["bias"], c["config"]), "wo",
+                        "attn", 3, c)
 
-        x = rms_norm(h, self.input_norm, config.rms_norm_eps)
-        q = dn(x, "wq", "attn").reshape(b_, s, nq, hd)
-        k = dn(x, "wk", "attn").reshape(b_, s, nkv, hd)
-        v = dn(x, "wv", "attn").reshape(b_, s, nkv, hd)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        h = h + dn(attention(q, k, v, bias, config), "wo", "attn")
-        x = rms_norm(h, self.post_attn_norm, config.rms_norm_eps)
-        mid = F.silu(dn(x, "wg", "mlp")) * dn(x, "wu", "mlp")
-        return h + dn(mid, "wd", "mlp")
+    def _mlp_mid(self, h, c):
+        x = rms_norm(h, self.post_attn_norm, c["config"].rms_norm_eps)
+        return F.silu(self._dn(x, "wg", "mlp", 4, c)) * self._dn(
+            x, "wu", "mlp", 5, c)
+
+    def _mlp_out(self, mid, c):
+        return self._dn(mid, "wd", "mlp", 6, c)
+
+    def _mlp(self, h, c):
+        return self._mlp_out(self._mlp_mid(h, c), c)
+
+    def forward(self, h, bias, cos, sin, config: ModelConfig,
+                lora: Optional[dict] = None, lora_scale: float = 0.0,
+                lora_dropout: float = 0.0, dropout_seed: Optional[int] = None,
+                save_mid: Optional[bool] = None):
+        """One layer. ``save_mid`` None runs it plainly; False or True
+        checkpoints the stages between q/k/v and the attention output (and,
+        when True, the MLP mid), which are then saved for the backward."""
+        c = {"bias": bias, "cos": cos, "sin": sin, "config": config,
+             "lora": lora, "scale": lora_scale, "dropout": lora_dropout,
+             "seed": dropout_seed}
+        if save_mid is None:
+            h = h + self._attn_out(*self._qkv(h, c), c)
+            return h + self._mlp(h, c)
+        ck = partial(checkpoint, use_reentrant=False)
+        q, k, v = ck(self._qkv, h, c)
+        h = h + ck(self._attn_out, q, k, v, c)
+        if save_mid:
+            return h + ck(self._mlp_out, ck(self._mlp_mid, h, c), c)
+        return h + ck(self._mlp, h, c)
+
+
+def _dots_policy(ops, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in ops
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_layer(layer: LlamaLayer, remat, *args):
+    """One layer under the config's remat value (see ModelConfig.remat)."""
+    if remat is False:
+        return layer(*args)
+    if remat is True:
+        return checkpoint(layer, *args, use_reentrant=False)
+    if remat in _DOTS:
+        ctx = partial(create_selective_checkpoint_contexts,
+                      partial(_dots_policy, _DOTS[remat]))
+        return checkpoint(layer, *args, use_reentrant=False, context_fn=ctx)
+    if isinstance(remat, str) and remat.startswith("names:"):
+        asked = set(remat[len("names:"):].split(","))
+        key = tuple(n for n in REMAT_NAMES if n in asked)
+        if set(key) == asked and key in _NAMED_SETS:
+            return layer(*args, save_mid=_NAMED_SETS[key])
+    raise NotImplementedError(
+        f"remat {remat!r}: the port takes False, True, {sorted(_DOTS)} "
+        f"and 'names:' over {REMAT_NAMES[:4]} with or without mlp_mid")
 
 
 def _layer_lora(lora: Optional[dict], i: int) -> Optional[dict]:
@@ -195,25 +299,37 @@ class LlamaBiForMNTP(nn.Module):
     def forward_hidden(self, input_ids: torch.Tensor,
                        attention_mask: torch.Tensor,
                        lora: Optional[dict] = None,
-                       lora_scale: float = 0.0) -> torch.Tensor:
-        """[B, S] ids and mask → final-norm hidden states [B, S, H]."""
+                       lora_scale: float = 0.0, lora_dropout: float = 0.0,
+                       dropout_seed: Optional[int] = None) -> torch.Tensor:
+        """[B, S] ids and mask → final-norm hidden states [B, S, H]. Layers
+        are rematerialized per ``config.remat`` only while autograd
+        records."""
         cfg = self.config
         h = self.embed_tokens(input_ids.long()).to(cfg.dtype)
         bias = padding_bias(attention_mask)
         cos, sin = rope_cos_sin(cfg, input_ids.shape[1], h.device)
+        use_dropout = (lora is not None and lora_dropout > 0.0
+                       and dropout_seed is not None)
+        remat = cfg.remat if torch.is_grad_enabled() else False
         for i, layer in enumerate(self.layers):
-            h = layer(h, bias, cos, sin, cfg, _layer_lora(lora, i), lora_scale)
+            h = _run_layer(layer, remat, h, bias, cos, sin, cfg,
+                           _layer_lora(lora, i), lora_scale,
+                           lora_dropout if use_dropout else 0.0,
+                           fold_in(dropout_seed, i) if use_dropout else None)
         return rms_norm(h, self.final_norm, cfg.rms_norm_eps)
 
     def forward_logits(self, input_ids: torch.Tensor,
                        attention_mask: torch.Tensor,
                        lora: Optional[dict] = None,
-                       lora_scale: float = 0.0) -> torch.Tensor:
-        """LM-head logits [B, S, V]."""
+                       lora_scale: float = 0.0, lora_dropout: float = 0.0,
+                       dropout_seed: Optional[int] = None) -> torch.Tensor:
+        """LM-head logits [B, S, V] (no dropout on the head's LoRA, as in
+        the reference)."""
         if self.lm_head is None and not self.config.tie_word_embeddings:
             raise ValueError("this model carries no LM head (untied "
                              "embeddings, weights without an lm_head)")
-        h = self.forward_hidden(input_ids, attention_mask, lora, lora_scale)
+        h = self.forward_hidden(input_ids, attention_mask, lora, lora_scale,
+                                lora_dropout, dropout_seed)
         if self.lm_head is None:
             return F.linear(h, self.embed_tokens.weight.to(h.dtype))
         head_lora = None if lora is None else lora.get("lm_head")

@@ -63,12 +63,15 @@ def params_from_jax(tree: dict, config: ModelConfig,
     return model
 
 
-def lora_from_jax(tree: dict, device="cuda") -> dict:
+def lora_from_jax(tree: dict, device="cuda", trainable: bool = False) -> dict:
     """A JAX LoRA factor tree (numpy leaves) → the same nesting of torch
-    tensors on ``device``."""
+    tensors on ``device``; ``trainable`` leaves require grad, so that a
+    trainer starts from the same factors as the JAX package's."""
     if isinstance(tree, dict):
-        return {k: lora_from_jax(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+        return {k: lora_from_jax(v, device, trainable)
+                for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True)).to(
+        device).requires_grad_(trainable)
 
 
 @torch.no_grad()

@@ -3,6 +3,13 @@
   * sparse: logits scaled by ``hidden_size**-0.25``, then
     ``log(relu(max_seq(x + (1-mask) * -1e6)) + 1)``: max BEFORE relu/log;
   * dense: per-token L2 normalize BEFORE the masked mean.
+
+The sparse head's masked max runs over vocabulary chunks and keeps the
+logits in their own dtype for the backward, never a float32 copy of the
+whole [B, S, V] slab (8.9 GB for 136 contexts of 128 tokens at Llama-3's
+vocabulary). Its values and gradients are those of the plain expression:
+the backward splits a maximum's gradient evenly among tied positions, as
+``amax``'s does.
 """
 
 from __future__ import annotations
@@ -11,14 +18,44 @@ import torch
 
 _NEG = -1e6
 _NORM_EPS = 1e-12
+_V_CHUNK = 8192
+
+
+class _MaskedMax(torch.autograd.Function):
+    """``(logits.float() * scale + penalty).amax(dim=1)``, over chunks of
+    the last dimension."""
+
+    @staticmethod
+    def forward(ctx, logits, penalty, scale: float):
+        b_, _, v = logits.shape
+        out = torch.empty(b_, v, dtype=torch.float32, device=logits.device)
+        for v0 in range(0, v, _V_CHUNK):
+            x = logits[:, :, v0:v0 + _V_CHUNK].float() * scale + penalty
+            out[:, v0:v0 + _V_CHUNK] = x.amax(dim=1)
+        ctx.save_for_backward(logits, penalty, out)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        logits, penalty, out = ctx.saved_tensors
+        scale = ctx.scale
+        grad = torch.empty_like(logits)
+        for v0 in range(0, logits.shape[2], _V_CHUNK):
+            sl = slice(v0, v0 + _V_CHUNK)
+            x = logits[:, :, sl].float() * scale + penalty
+            at_max = x == out[:, None, sl]
+            g = grad_out[:, None, sl] / at_max.sum(dim=1, keepdim=True)
+            grad[:, :, sl] = (g * at_max * scale).to(logits.dtype)
+        return grad, None, None
 
 
 def sparse_pool(seq_logits: torch.Tensor, attention_mask: torch.Tensor,
                 hidden_size: int) -> torch.Tensor:
     """[B, S, V] LM-head logits → [B, V] SPLADE-style sparse reps (f32)."""
-    x = seq_logits.float() * (float(hidden_size) ** -0.25)
     penalty = (1.0 - attention_mask.float())[:, :, None] * _NEG
-    pooled = (x + penalty).amax(dim=1)
+    pooled = _MaskedMax.apply(seq_logits, penalty,
+                              float(hidden_size) ** -0.25)
     return torch.log(torch.relu(pooled) + 1.0)
 
 

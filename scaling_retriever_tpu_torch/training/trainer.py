@@ -1,0 +1,407 @@
+"""The training loop for retriever encoders (port of training/trainer.py).
+
+  * the loss combination of the reference's training step:
+    ``total = sum_nonreg w_k * loss_k + sum_reg lambda_t * loss_k``, the
+    quadratic ramp lambda_t read at the micro step (counted from 1), tasks
+    not listed kept as metrics only, times ``loss_scale``;
+  * gradients from autograd over the trainable leaves only (the LoRA
+    factors; the whole module under ``lora=False``), the base frozen;
+  * optax's arithmetic: gradient accumulation as ``MultiSteps`` (the
+    running mean of the micro gradients, then one update), global-norm
+    clipping as ``clip_by_global_norm`` (``g / norm * max_norm``, no
+    epsilon), then ``torch.optim.AdamW`` at the learning rate of the
+    schedule at the update's count (the first update reads count 0);
+  * ``max_steps`` counts optimizer steps; ``max_steps <= 0`` trains
+    ``num_train_epochs`` epochs;
+  * per-task metrics to ``trainer_log.jsonl`` (and wandb, where installed);
+  * artifacts: a peft adapter or an HF checkpoint (``save_model``), and a
+    resumable ``checkpoint-N/`` written with ``torch.save`` (the port's own
+    format), resumed by path or ``"auto"``, mid-epoch included.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from scaling_retriever_tpu_torch.models import losses as losses_lib
+from scaling_retriever_tpu_torch.models.llama import fold_in
+from scaling_retriever_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from scaling_retriever_tpu_torch.utils.profiling import profile_span
+
+STATE_FILE = "trainer_state.pt"
+# the CLIs' --remat → ModelConfig.remat, the reference's values
+REMAT = {"none": False, "full": True, "dots": "dots_saveable",
+         "dots_nb": "dots_with_no_batch_dims_saveable",
+         "attn": "names:attn_q,attn_k,attn_v,attn_out",
+         "attn_mlp": "names:attn_q,attn_k,attn_v,attn_out,mlp_mid"}
+
+
+@dataclasses.dataclass
+class LLM2RetrieverTrainingArgs:
+    """The reference's training arguments, field for field."""
+
+    model_name_or_path: str = ""
+    output_dir: str = "out"
+    model_type: str = "llama"
+    loss_type: str = "nce"           # nce | margin_mse | kldiv | nce_kldiv
+    # non-"reg" names are weighted directly; "*reg*" names get the
+    # quadratic ramp with lambda = the task weight
+    task_names: Sequence[str] = ("rank", "query_reg", "doc_reg")
+    task_weights: Sequence[float] = (1.0, 0.01, 0.008)
+    reg_T: Optional[int] = None      # ramp horizon; default max_steps // 3
+    # lora
+    lora: bool = True
+    lora_r: int = 16
+    lora_alpha: int = 32
+    lora_dropout: float = 0.1
+    lora_modules_to_save: Optional[Sequence[str]] = None
+    # optimization
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.0
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    warmup_ratio: float = 0.0
+    warmup_steps: int = 0
+    max_steps: int = 1000            # optimizer steps; <= 0 → epochs
+    num_train_epochs: float = 3.0    # used only when max_steps <= 0
+    per_device_train_batch_size: int = 8
+    gradient_accumulation_steps: int = 1
+    # data
+    n_negs: int = 1
+    query_max_length: int = 64
+    doc_max_length: int = 128
+    T: float = 0.01                   # dense temperature
+    # runtime
+    bf16: bool = False
+    fsdp: bool = False               # one card: replicated training
+    n_data_shards: Optional[int] = None
+    loss_scale: float = 1.0
+    logging_steps: int = 50
+    eval_steps: Optional[int] = None   # eval_fn every N optimizer steps
+    save_steps: Optional[int] = None
+    save_total_limit: int = 1
+    seed: int = 42
+    resume_from_checkpoint: Optional[str] = None   # path or "auto"
+    wandb_project_name: Optional[str] = None
+    run_name: Optional[str] = None
+
+    @property
+    def ln_to_weight(self) -> dict:
+        return dict(zip(self.task_names, self.task_weights))
+
+    @property
+    def reg_horizon(self) -> int:
+        return self.reg_T if self.reg_T else max(1, self.max_steps // 3)
+
+
+def get_last_checkpoint(output_dir: str) -> Optional[str]:
+    """The latest ``checkpoint-N`` directory, or None."""
+    if not os.path.isdir(output_dir):
+        return None
+    ckpts = [d for d in os.listdir(output_dir)
+             if d.startswith("checkpoint-")
+             and os.path.isdir(os.path.join(output_dir, d))]
+    if not ckpts:
+        return None
+    latest = max(ckpts, key=lambda d: int(d.split("-")[1]))
+    return os.path.join(output_dir, latest)
+
+
+def linear_warmup_decay(lr: float, warmup: int, total: int):
+    """The HF 'linear' schedule as optax joins it: 0 → lr over ``warmup``
+    counts, lr → 0 over the rest, each piece clamped to its range, in
+    float32. Returns count → learning rate."""
+    warmup = max(warmup, 0)
+    f32 = np.float32
+
+    def linear(init, end, steps, count):
+        count = min(max(count, 0), steps)
+        frac = f32(1) - f32(count) / f32(steps)
+        return f32(init - end) * frac + f32(end)
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            return float(linear(0.0, lr, max(warmup, 1), count))
+        return float(linear(lr, 0.0, max(total - warmup, 1), count - warmup))
+
+    return schedule
+
+
+def tree_leaves(tree) -> list:
+    """(path, tensor) pairs of a nested dict of tensors, or of a module's
+    parameters, in a fixed order."""
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.named_parameters())
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}.{k}" if path else k)
+        else:
+            out.append((path, node))
+
+    walk(tree, "")
+    return out
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor, in float32."""
+    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+
+
+class Trainer:
+    """The training loop; ``encoder`` is any LLM2Retriever (or MNTPModel).
+    It trains in place: ``encoder.lora`` (or ``encoder.params`` under
+    ``lora=False``) is ``self.trainable``."""
+
+    def __init__(self, encoder, args: LLM2RetrieverTrainingArgs,
+                 train_loader, mesh=None, eval_fn=None):
+        self.encoder = encoder
+        self.args = args
+        self.train_loader = train_loader
+        # eval_fn(trainable, step) -> metrics, every args.eval_steps
+        # optimizer steps
+        self.eval_fn = eval_fn
+        self.mesh = mesh if mesh is not None else make_mesh(
+            devices=[encoder.params.device])
+        self.step = 0        # optimizer steps completed
+        self.micro_step = 0  # loader batches consumed
+        self.epoch = 0
+        self._epoch_start_micro = 0
+        self._resume_skip_batches = 0
+        self._log_path = os.path.join(args.output_dir, "trainer_log.jsonl")
+
+        warmup = args.warmup_steps or int(args.warmup_ratio * args.max_steps)
+        self.schedule = linear_warmup_decay(args.learning_rate, warmup,
+                                            args.max_steps)
+        self.use_lora = encoder.lora is not None
+        self.params = encoder.params if self.use_lora else None
+        self.trainable = encoder.lora if self.use_lora else encoder.params
+        self._leaves = [t for _, t in tree_leaves(self.trainable)]
+        for t in self._leaves:
+            t.requires_grad_(True)
+        self.optimizer = torch.optim.AdamW(
+            self._leaves, lr=self.schedule(0),
+            betas=(args.adam_beta1, args.adam_beta2), eps=args.adam_epsilon,
+            weight_decay=args.weight_decay)
+        self._acc = None     # the running mean of the micro gradients
+
+    # ------------------------------------------------------------------
+
+    def _combined_loss(self, batch, step: int):
+        args = self.args
+        dropout_seed = (fold_in(args.seed, step)
+                        if self.use_lora and args.lora_dropout > 0.0
+                        else None)
+        if self.use_lora:
+            task_losses = self.encoder.loss_forward(
+                self.params, self.trainable, batch, dropout_seed)
+        else:
+            task_losses = self.encoder.loss_forward(self.trainable, None,
+                                                    batch)
+        total = 0.0
+        weighted = {}
+        for name, value in task_losses.items():
+            if "reg" in name:
+                lam = losses_lib.reg_weight_at_step(
+                    args.ln_to_weight.get(name, 0.0), args.reg_horizon, step)
+                total = total + value * lam
+                weighted[name] = value * lam
+            elif name in args.ln_to_weight:
+                w = args.ln_to_weight[name]
+                total = total + value * w
+                weighted[name] = value * w
+            else:
+                weighted[name] = value   # metric only (nce/kldiv splits)
+        return total * args.loss_scale, weighted
+
+    def _train_step(self, batch, step: int) -> dict:
+        """One micro step: the loss and its gradients, accumulated; at the
+        last micro step of an optimizer step, clip and update."""
+        loss, weighted = self._combined_loss(batch, step)
+        grads = torch.autograd.grad(loss, self._leaves)
+        gnorm = global_norm(grads)
+        gas = max(self.args.gradient_accumulation_steps, 1)
+        mini = (step - 1) % gas
+        if mini == 0:
+            self._acc = list(grads)
+        else:
+            for acc, g in zip(self._acc, grads):
+                acc.add_((g - acc) / (mini + 1))
+        if mini == gas - 1:
+            self._apply(self._acc)
+            self._acc = None
+        metrics = {"loss": loss, "grad_norm": gnorm, **weighted}
+        return {k: float(v.detach()) for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def _apply(self, grads) -> None:
+        norm = global_norm(grads)
+        if not bool(norm < self.args.max_grad_norm):
+            grads = [g / norm * self.args.max_grad_norm for g in grads]
+        for p, g in zip(self._leaves, grads):
+            p.grad = g.to(p.dtype)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.schedule(self.step)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+
+    # ------------------------------------------------------------------
+
+    def train(self) -> dict:
+        args = self.args
+        os.makedirs(args.output_dir, exist_ok=True)
+        if args.resume_from_checkpoint == "auto":
+            last = get_last_checkpoint(args.output_dir)
+            if last:
+                print(f"resuming from {last}", flush=True)
+                self.load_state(last)
+        elif args.resume_from_checkpoint:
+            self.load_state(args.resume_from_checkpoint)
+        self._wandb = None
+        if args.wandb_project_name:
+            try:
+                import wandb
+
+                self._wandb = wandb.init(project=args.wandb_project_name,
+                                         name=args.run_name, resume="allow")
+            except ImportError:
+                print("wandb not installed; logging to jsonl only",
+                      flush=True)
+
+        accum: dict[str, float] = {}
+        n_acc = 0
+        t0 = time.time()
+        gas = max(args.gradient_accumulation_steps, 1)
+        # batches of the current epoch already consumed before a resume
+        skip_in_epoch = self._resume_skip_batches
+        self._resume_skip_batches = 0
+        done = self._stop(args)
+        while not done:
+            if hasattr(self.train_loader, "set_epoch"):
+                self.train_loader.set_epoch(self.epoch)
+            self._epoch_start_micro = self.micro_step - skip_in_epoch
+            epoch_had_batches = False
+            for batch in self.train_loader:
+                epoch_had_batches = True
+                if skip_in_epoch > 0:
+                    skip_in_epoch -= 1
+                    continue
+                batch = shard_batch(batch, self.mesh)
+                # the ramp advances once per micro step
+                self.micro_step += 1
+                with profile_span("train_step"):
+                    metrics = self._train_step(batch, self.micro_step)
+                for k, v in metrics.items():
+                    accum[k] = accum.get(k, 0.0) + v
+                n_acc += 1
+                if self.micro_step % gas == 0:
+                    self.step += 1
+                    if self.step % args.logging_steps == 0:
+                        self._log({k: v / n_acc for k, v in accum.items()},
+                                  time.time() - t0)
+                        accum, n_acc = {}, 0
+                    if args.save_steps and self.step % args.save_steps == 0:
+                        self.save_checkpoint()
+                    if (self.eval_fn is not None and args.eval_steps
+                            and self.step % args.eval_steps == 0):
+                        self._log(dict(self.eval_fn(self.trainable,
+                                                    self.step)),
+                                  time.time() - t0)
+                if self._stop(args):
+                    done = True
+                    break
+            if not done:
+                self.epoch += 1
+                if not epoch_had_batches or self._stop(args):
+                    break
+        if n_acc:
+            self._log({k: v / n_acc for k, v in accum.items()},
+                      time.time() - t0)
+        return {"train_steps": self.step, "micro_steps": self.micro_step}
+
+    def _stop(self, args) -> bool:
+        if args.max_steps and args.max_steps > 0:
+            return self.step >= args.max_steps
+        return self.epoch >= args.num_train_epochs
+
+    def _log(self, metrics: dict, elapsed: float) -> None:
+        entry = {"step": self.step, "elapsed_sec": round(elapsed, 2),
+                 **metrics}
+        print(json.dumps(entry), flush=True)
+        with open(self._log_path, "a") as f:
+            f.write(json.dumps(entry) + "\n")
+        if getattr(self, "_wandb", None) is not None:
+            self._wandb.log(metrics, step=self.step)
+
+    # -- checkpointing -------------------------------------------------------
+
+    def save_model(self, out_dir: Optional[str] = None) -> None:
+        """The final artifact: a peft adapter, or an HF checkpoint; the
+        encoder picks the format."""
+        self.encoder.save_trained(self.trainable,
+                                  out_dir or self.args.output_dir,
+                                  use_lora=self.use_lora)
+
+    def save_checkpoint(self) -> str:
+        """Resumable state (counters, trainable, optimizer) in
+        ``checkpoint-<step>/trainer_state.pt``, taken at an optimizer-step
+        boundary."""
+        ckpt_dir = os.path.join(os.path.abspath(self.args.output_dir),
+                                f"checkpoint-{self.step}")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        torch.save({
+            "step": self.step,
+            "micro_step": self.micro_step,
+            "epoch": self.epoch,
+            "micro_in_epoch": self.micro_step - self._epoch_start_micro,
+            "trainable": {k: t.detach().cpu()
+                          for k, t in tree_leaves(self.trainable)},
+            "optimizer": self.optimizer.state_dict(),
+        }, os.path.join(ckpt_dir, STATE_FILE))
+        self._prune_checkpoints()
+        return ckpt_dir
+
+    def _prune_checkpoints(self) -> None:
+        limit = self.args.save_total_limit
+        if not limit:
+            return
+        root = self.args.output_dir
+        ckpts = sorted(
+            (d for d in os.listdir(root) if d.startswith("checkpoint-")),
+            key=lambda d: int(d.split("-")[1]))
+        for d in ckpts[:-limit]:
+            shutil.rmtree(os.path.join(root, d))
+
+    @torch.no_grad()
+    def load_state(self, ckpt_dir: str) -> None:
+        state = torch.load(os.path.join(ckpt_dir, STATE_FILE),
+                           map_location=self.mesh.device, weights_only=True)
+        self.step = int(state["step"])
+        gas = max(self.args.gradient_accumulation_steps, 1)
+        self.micro_step = int(state.get("micro_step", self.step * gas))
+        self.epoch = int(state.get("epoch", 0))
+        # re-seek the loader within the epoch; the dropout needs no state:
+        # its seed is fold_in(seed, micro_step)
+        self._resume_skip_batches = int(state.get("micro_in_epoch", 0))
+        saved = state["trainable"]
+        for k, t in tree_leaves(self.trainable):
+            t.copy_(saved[k])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self._acc = None
+
+
+SparseTrainer = Trainer
+DenseTrainer = Trainer
+DenseTrainerForNCE_KLdiv = Trainer

@@ -137,10 +137,16 @@ def test_build_save_and_rerank(ckpt, tmp_path):
     np.testing.assert_allclose(port.rerank_forward(tq, td).numpy(),
                                np.asarray(ref.rerank_forward(tq, td)),
                                rtol=RTOL, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="A11"):
-        port.save_trained({}, str(tmp_path / "t"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        port.loss_forward(None, None, {})
+    # the training halves: the whole module saved as a checkpoint, and the
+    # sparse nce losses of one batch
+    port.save_trained(port.params, str(tmp_path / "t"), use_lora=False)
+    _same(LlamaBiSparse.load(str(tmp_path / "t"), device="cpu"),
+          ref_encoder.LlamaBiSparse.load(base_dir))
+    out = port.loss_forward(port.params, None, {
+        "tokenized_queries": tq, "tokenized_contexts": td,
+        "target_labels": np.arange(len(ids), dtype=np.int32)})
+    assert set(out) == {"rank", "query_reg", "doc_reg"}
+    assert all(torch.isfinite(v) for v in out.values())
 
 
 def test_resolve_model_dir_offline(ckpt, tmp_path, monkeypatch):

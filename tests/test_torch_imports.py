@@ -1,9 +1,9 @@
 """The torch port and chip_smoke.py import neither JAX nor the JAX package
-(nor ml_dtypes) anywhere, and the host libraries the machine with the card
-lacks (transformers, tokenizers, safetensors, peft, h5py) only inside the
-functions that need them, never at module level: an AST scan of every
-file, and an import of every module in a fresh interpreter that must
-leave all of them out of ``sys.modules``."""
+(nor ml_dtypes, optax or orbax) anywhere, and the host libraries the
+machine with the card lacks (transformers, tokenizers, safetensors, peft,
+h5py, datasets, wandb) only inside the functions that need them, never at
+module level: an AST scan of every file, and an import of every module in
+a fresh interpreter that must leave all of them out of ``sys.modules``."""
 
 import ast
 import os
@@ -14,8 +14,10 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "scaling_retriever_tpu_torch")
-STRICT = ("jax", "jaxlib", "flax", "scaling_retriever_tpu", "ml_dtypes")
-OPTIONAL = ("transformers", "tokenizers", "safetensors", "peft", "h5py")
+STRICT = ("jax", "jaxlib", "flax", "scaling_retriever_tpu", "ml_dtypes",
+          "optax", "orbax")
+OPTIONAL = ("transformers", "tokenizers", "safetensors", "peft", "h5py",
+            "datasets", "wandb")
 FORBIDDEN = STRICT + OPTIONAL
 
 
@@ -98,4 +100,15 @@ def test_dense_slice_modules_are_scanned():
                 "models/hf_loader.py", "models/safetensors_io.py",
                 "models/lora.py", "models/qwen2.py", "models/mistral.py",
                 "evaluation/eval_sparse.py", "serving/text_frontend.py"):
+        assert mod in files, mod
+
+
+def test_training_slice_modules_are_scanned():
+    """The training path's modules are among the files the checks above
+    cover."""
+    files = {os.path.relpath(p, PKG) for p in _port_files()
+             if p.startswith(PKG)}
+    for mod in ("models/losses.py", "parallel/mesh.py",
+                "training/trainer.py", "training/train_sparse.py",
+                "training/train_dense.py", "training/mntp.py"):
         assert mod in files, mod
