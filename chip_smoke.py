@@ -88,7 +88,22 @@ Phases (any failure raises and exits non-zero):
      NCE through train_dense's body; MNTP through its CLI body at
      configs/mntp/llama3_1b_msmarco.json's batch (32 x 512) under full
      remat;
-  9. print the card, per-kernel numbers as one JSON line, and last
+  9. hybrid retrieval, reranking and the T5 family: LlamaBiHybrid (phase
+     8's checkpoint) through HybridIndexer over 4,096 generated docs and
+     HybridRetriever (engine "segsort") for 1,024 queries into
+     sparse/run.json (== the "xla" engine and the plain-ops engine) and
+     dense/run.json (== the direct search); TermEncoderRetriever over
+     262,144 32-term codes (== a plain chunked top-k); eval_reranker's
+     bi-encoder body for splade, dense_encoder and hybrid_retriever over
+     64 x 32 pairs of the sparse run (each score == the dot product of
+     the pair's reps); T5 at google/t5-v1_1-base width (random bf16
+     weights written as an HF checkpoint) trained with LoRA through
+     train_sparse's body (--model_type t5) at the 1B recipe's micro batch,
+     learning on one fixed batch, its peft T5 adapter reloaded and merged,
+     indexing 4,096 docs and answering 256 right-padded queries into
+     run.json through B1, B4 and B5 (== the plain-ops engine); launch
+     counts read as in 4;
+ 10. print the card, per-kernel numbers as one JSON line, and last
      {"ok": true, "device": {...}}.
 """
 
@@ -125,8 +140,9 @@ F32_OPS_PER_S = 67e12         # H100 SXM data sheet, non-tensor f32
 BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 
 
-# the kernels each serving path (phase 4), offline path (phase 5) and
-# dense path (phase 6) must launch; topm_dense is B5 at its dense call site
+# the kernels each serving path (phase 4), offline path (phase 5), dense
+# path (phase 6), checkpoint and training path (phases 7, 8) and hybrid
+# and T5 path (phase 9) must launch; topm_dense is B5 at its dense site
 PATH_KERNELS = {
     "text q8 + pre-encoded f32": ("fetch_f32", "fetch_q8", "segsum", "topm"),
     "pre-encoded bf16": ("fetch_bf16", "segsum", "topm"),
@@ -141,6 +157,9 @@ PATH_KERNELS = {
     "served dense": ("topm_dense",),
     "checkpoint pipeline": ("fetch_f32", "segsum", "topm"),
     "trained adapter": ("fetch_f32", "segsum", "topm"),
+    "hybrid sparse": ("fetch_f32", "segsum", "topm"),
+    "hybrid dense": ("topm_dense",),
+    "t5 trained adapter": ("fetch_f32", "segsum", "topm"),
 }
 
 
@@ -825,8 +844,9 @@ def profile_tile(label: str, fn, card_s: str) -> None:
 
 
 class StandInTokenizer:
-    """Texts of words "w<id>" → token id = id mod vocab, left-padded (the
-    stand-in for the Llama-3 tokenizer, whose files are not in the
+    """Texts of words "w<id>" → token id = id mod vocab, padded on the left,
+    or on the right with ``padding_side="right"`` as T5 pads (the stand-in
+    for the Llama-3 and T5 tokenizers, whose files are not in the
     repository). ``tok(texts, length=None)`` pads to ``length`` or to the
     smallest length rung that holds the batch and returns (ids, mask), as
     the text frontend calls it; with Hugging Face keywords
@@ -836,9 +856,11 @@ class StandInTokenizer:
     pad_token_id = 0
     bos_token_id = eos_token_id = unk_token_id = mask_token_id = None
 
-    def __init__(self, vocab: int, lengths=(16, 64)):
+    def __init__(self, vocab: int, lengths=(16, 64),
+                 padding_side: str = "left"):
         self.vocab = vocab
         self.lengths = tuple(lengths)
+        self.padding_side = padding_side   # "right" for T5
 
     def convert_tokens_to_ids(self, tokens):
         """"w<id>" → its id; "_" (MNTP's blank mask token) → the last."""
@@ -871,9 +893,11 @@ class StandInTokenizer:
         mask = np.zeros((len(texts), length), np.int32)
         for i, t in enumerate(toks):
             t = t[:length]
+            at = (slice(0, len(t)) if self.padding_side == "right"
+                  else slice(length - len(t), length))
             if t:
-                ids[i, length - len(t):] = t
-                mask[i, length - len(t):] = 1
+                ids[i, at] = t
+                mask[i, at] = 1
         if hf:
             return {"input_ids": ids, "attention_mask": mask}
         return ids, mask
@@ -1169,9 +1193,11 @@ def cross_check_runs(got: dict, want: dict, qids, label: str) -> float:
                        np.array([[d for d, _ in r] for r in w]))
 
 
-def engine_run(eng, qt, qv, ids, doc_ids, n_docs) -> dict:
+def engine_run(eng, qt, qv, ids, doc_ids, n_docs, k=None) -> dict:
     """The engine's TILE-wide tiles over the queries (depth-2 pipeline) as a
-    run dict, thresholded at 0 as the driver does."""
+    run dict of top-``k`` (default TOPK) lists, thresholded at 0 as the
+    driver does."""
+    k = k or TOPK
     from scaling_retriever_tpu_torch.utils.run_accum import RunAccumulator
     from scaling_retriever_tpu_torch.utils.utils import depth2_pipeline
 
@@ -1179,7 +1205,7 @@ def engine_run(eng, qt, qv, ids, doc_ids, n_docs) -> dict:
 
     def dispatch(s):
         return s, eng.retrieve_tile_async(
-            None, TOPK, sparsified=(qt[s:s + TILE], qv[s:s + TILE]))
+            None, k, sparsified=(qt[s:s + TILE], qv[s:s + TILE]))
 
     def drain(p):
         s, payload = p
@@ -2331,10 +2357,14 @@ class TopKReps:
         self.k = k
         self.vocab_size = model.vocab_size
 
-    def encode(self, input_ids, attention_mask) -> torch.Tensor:
-        reps = self.model.encode(input_ids, attention_mask)
+    def encode(self, input_ids, attention_mask):
+        """The reps kept to their top ``k``; of a hybrid model's (sparse,
+        dense) pair, the sparse head's, the dense passed through."""
+        out = self.model.encode(input_ids, attention_mask)
+        reps = out[0] if isinstance(out, tuple) else out
         vals, terms = torch.topk(reps, self.k, dim=1)
-        return torch.zeros_like(reps).scatter_(1, terms, vals)
+        kept = torch.zeros_like(reps).scatter_(1, terms, vals)
+        return (kept, *out[1:]) if isinstance(out, tuple) else kept
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3124,6 +3154,530 @@ def training_phase(dev, ckpt: str, seed: int, card_s: str, tmp: str) -> dict:
     return {"trained adapter": launches}
 
 
+# ---- phase 9: hybrid retrieval, the term-encoder retriever, reranking and
+# the T5 family
+
+HYB_DOCS = 4_096
+HYB_DOC_LEN = 128
+HYB_QUERIES = 1_024
+HYB_QLEN = 64
+# k of the hybrid runs: a 4,096-doc corpus fills one block of the dense
+# index's default 4,096-row selection blocks, so the per-block top-32 could
+# never certify a top-1000; 128-row blocks (B5's smallest) leave 32 blocks
+# of real docs and certify a top-100
+HYB_K = 100
+HYB_SEL_BLOCK = 128
+XLA_RTOL = 2.0 ** -8          # the "xla" engine's doc-major values are bf16
+TERM_DOCS = 262_144
+TERM_LEN = 32
+TERM_QUERIES = 256
+TERM_CHUNK = 16_384
+RERANK_Q, RERANK_D = 64, 32
+RERANK_RTOL = 1e-3
+# google/t5-v1_1-base's config.json
+T5_V1_1_BASE = {"vocab_size": 32128, "d_model": 768, "d_kv": 64,
+                "d_ff": 2048, "num_layers": 12, "num_decoder_layers": 12,
+                "num_heads": 12, "feed_forward_proj": "gated-gelu",
+                "tie_word_embeddings": False,
+                "relative_attention_num_buckets": 32,
+                "relative_attention_max_distance": 128}
+T5_STEPS = 6                  # timed: the median of the last 4
+T5_FIXED_STEPS = 6
+# the recipe's 1e-4, not phase 8's 1e-3: T5's forward has no LoRA dropout
+# whose noise a fixed batch must beat, and random T5 reps are dense (scores
+# near 25,000), so 1e-3 throws the fixed batch's loss back up (on the card:
+# 130.3, 0.05, 0.07, 73.4, 131.8, 0.09)
+T5_LR = 1e-4
+# merged vs unmerged T5 reps in float32 (both reloaded from the files):
+# each merged weight rounds once more at 2^-24; random T5-base amplifies a
+# weight rounding ~100x into its reps (bf16, 2^-9: 0.065-0.077 measured)
+MERGE_F32_RTOL = 1e-4
+
+
+def t5_flops(cfg, groups) -> float:
+    """Model FLOPs of one T5 micro step over ``groups`` of (rows, tokens),
+    the decoder fed the same tokens: the projections, the attention
+    products (self, and the decoder's cross) and the LM head, forward and
+    backward to the activations (the base is frozen)."""
+    d, inner, V = cfg.d_model, cfg.inner_dim, cfg.vocab_size
+    ffn = (3 if cfg.is_gated else 2) * d * cfg.d_ff
+    fwd = 0
+    for rows, seq in groups:
+        enc = cfg.num_layers * (4 * d * inner + ffn + 2 * seq * inner)
+        dec = cfg.num_decoder_layers * (8 * d * inner + ffn
+                                        + 4 * seq * inner)
+        fwd += 2 * rows * seq * (enc + dec + d * V)
+    return 2 * fwd
+
+
+def split_launches(counts: dict, keys) -> tuple[dict, dict]:
+    """One run's launch counts split into (the counts of ``keys``, the
+    rest), each keyed by every kernel."""
+    a = {k: (v if k in keys else 0) for k, v in counts.items()}
+    return a, {k: counts[k] - a[k] for k in counts}
+
+
+def token_batches(ids: np.ndarray, names, bz: int = TILE) -> list:
+    """Unpadded [n, L] token rows as the collators' batches."""
+    return [{"input_ids": ids[s:s + bz],
+             "attention_mask": np.ones_like(ids[s:s + bz]),
+             "ids": list(names[s:s + bz])} for s in range(0, len(ids), bz)]
+
+
+def write_tsv(path: str, names, rows) -> None:
+    with open(path, "w") as f:
+        for name, row in zip(names, rows):
+            f.write(f"{name}\t{' '.join(f'w{t}' for t in row)}\n")
+
+
+def hybrid_phase(dev, ckpt: str, seed: int, card_s: str, tmp: str) -> dict:
+    """Phase 9 (a)-(c): the hybrid encoder at Llama-3.2-1B width (the
+    checkpoint at ``ckpt``) indexing and retrieving, the term-encoder
+    retriever over its sparse head, and the reranker's bi-encoder body.
+    Returns the launch counts of the hybrid sparse and dense paths."""
+    from scaling_retriever_tpu_torch.evaluation import eval_reranker
+    from scaling_retriever_tpu_torch.index.hybrid import (HybridIndexer,
+                                                          HybridRetriever,
+                                                          LlamaBiHybrid)
+    from scaling_retriever_tpu_torch.index.inverted_index import SparseIndex
+    from scaling_retriever_tpu_torch.index.term_encoder import \
+        TermEncoderRetriever
+    from scaling_retriever_tpu_torch.models.encoder import (LlamaBiDense,
+                                                            LlamaBiSparse)
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+    from scaling_retriever_tpu_torch.ops import segsort_scoring as ss
+    from scaling_retriever_tpu_torch.utils.run_accum import RunAccumulator
+
+    t_phase = time.perf_counter()
+
+    def lap(step: str) -> None:
+        log(f"phase 9 at {time.perf_counter() - t_phase:.1f} s: {step}")
+
+    rng = np.random.default_rng(seed + 90)
+    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    model = LlamaBiHybrid.load(ckpt, device=dev, **bf16)
+    tok = StandInTokenizer(VOCAB)
+
+    # ---- (a) HybridIndexer, then HybridRetriever on segsort and xla ----
+    lap("hybrid indexing")
+    docs = rng.integers(0, VOCAB, (HYB_DOCS, HYB_DOC_LEN))
+    doc_names = [f"h{d}" for d in range(HYB_DOCS)]
+    picks = rng.choice(HYB_DOCS, HYB_QUERIES, replace=False)
+    queries = docs[picks, :HYB_QLEN]
+    q_names = [f"q{i}" for i in range(HYB_QUERIES)]
+    sp_dir, de_dir = os.path.join(tmp, "hyb_sparse"), os.path.join(
+        tmp, "hyb_dense")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = HybridIndexer(TopKReps(model, CKPT_L0_D), sp_dir, de_dir).index(
+        token_batches(docs, doc_names))
+    index_s = time.perf_counter() - t0
+    index = out["index"]
+    check(index.nb_docs() == HYB_DOCS
+          and index.nnz == HYB_DOCS * CKPT_L0_D,
+          f"hybrid index: {index.nb_docs()} docs, {index.nnz} postings")
+    embs = np.load(os.path.join(de_dir, "embs_0_0.npy"))
+    check(embs.shape == (HYB_DOCS, model.hidden_size)
+          and np.isfinite(embs).all(), f"dense chunk {embs.shape}")
+    log(f"hybrid indexing at Llama-3.2-1B width: {HYB_DOCS} docs of "
+        f"{HYB_DOC_LEN} tokens in {index_s:.2f} s "
+        f"({HYB_DOCS / index_s:.0f} docs/s; sparse reps kept to their top "
+        f"{CKPT_L0_D}, {index.nnz} postings; dense {embs.shape} f32); card "
+        f"{card_s}")
+
+    lap("hybrid retrieval")
+    q_model = TopKReps(model, L0_Q)
+    q_batches = token_batches(queries, q_names)
+
+    def retriever(engine: str, name: str):
+        r = HybridRetriever(q_model, sp_dir, de_dir, os.path.join(tmp, name),
+                            topk=HYB_K, engine=engine, device=dev)
+        r.dense_indexer.sel_block = HYB_SEL_BLOCK
+        return r
+
+    seg = retriever("segsort", "hyb_runs")
+    cuda_lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = seg.retrieve(q_batches)
+    torch.cuda.synchronize()
+    ret_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    for head in ("sparse", "dense"):
+        with open(os.path.join(tmp, "hyb_runs", head, "run.json")) as f:
+            check(json.load(f) == runs[head], f"{head}/run.json")
+        check(len(runs[head]) == HYB_QUERIES and all(
+            len(v) == HYB_K for v in runs[head].values()),
+            f"hybrid {head} run sizes")
+    dense_fallbacks = seg.dense_indexer.fallbacks
+    # the sparse run against the same retriever on the doc-major scan, and
+    # against the plain-ops engine on the same sparsified queries
+    xla = retriever("xla", "hyb_runs_xla")
+    runs_xla = xla.retrieve(q_batches)
+    same_run(runs["sparse"], runs_xla["sparse"], q_names, XLA_RTOL,
+             "hybrid sparse: segsort vs xla")
+    check(runs_xla["dense"] == runs["dense"], "hybrid dense: the two "
+          "retrievers' dense runs differ")
+    del xla
+    plain = ss.SegsortEngine(SparseIndex.load(sp_dir), topk=HYB_K,
+                             ops=ss.PLAIN, device=dev)
+    qt, qv = [], []
+    for b in q_batches:
+        t_, v_ = ss.sparsify_reps_device(
+            q_model.encode(b["input_ids"], b["attention_mask"])[0], plain.T)
+        qt.append(t_)
+        qv.append(v_)
+    w = max(t_.shape[1] for t_ in qt)
+    qt = np.concatenate([np.pad(t_, ((0, 0), (0, w - t_.shape[1])))
+                         for t_ in qt])
+    qv = np.concatenate([np.pad(v_, ((0, 0), (0, w - v_.shape[1])))
+                         for v_ in qv])
+    same_run(runs["sparse"], engine_run(plain, qt, qv, q_names,
+                                        index.doc_ids, HYB_DOCS, HYB_K),
+             q_names, 1e-5, "hybrid sparse: kernels vs the plain-ops engine")
+    del plain
+    # the dense run against the direct (unblocked) search
+    q_dense = torch.cat([model.encode(b["input_ids"], b["attention_mask"])[1]
+                         for b in q_batches]).float().cpu().numpy()
+    blocked = result_arrays(seg.dense_indexer.search_knn(q_dense, HYB_K))
+    seg.dense_indexer.selection = "direct"
+    direct = result_arrays(seg.dense_indexer.search_knn(q_dense, HYB_K))
+    same_topk(blocked, direct, "hybrid dense: blocked vs direct")
+    check(all(list(runs["dense"][q]) == [str(x) for x in blocked[0][i]]
+              for i, q in enumerate(q_names)),
+          "hybrid dense/run.json is not the blocked search's")
+    dense_l, sparse_l = split_launches(launches, ("topm_dense",))
+    log(f"hybrid retrieval: {HYB_QUERIES} queries of {HYB_QLEN} tokens into "
+        f"sparse/run.json and dense/run.json (k {HYB_K}) in {ret_s:.2f} s; "
+        f"sparse (segsort) == xla (tie-equal, rtol {XLA_RTOL}: its "
+        f"doc-major values are bf16) == the plain-ops engine (rtol 1e-5); "
+        f"dense blocked == direct (scores bit-equal), {dense_fallbacks} "
+        f"certificate fallbacks; launches {launches}; card {card_s}")
+    del seg
+    free()
+
+    # ---- (b) TermEncoderRetriever over its sparse head ----
+    lap("term encoder")
+    codes = rng.integers(0, VOCAB, (TERM_DOCS, TERM_LEN))
+    code_names = [f"t{d}" for d in range(TERM_DOCS)]
+    t_batches = [{**b, "queries": b.pop("ids")}
+                 for b in token_batches(queries[:TERM_QUERIES],
+                                        q_names[:TERM_QUERIES])]
+    ter = TermEncoderRetriever(model, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_t = ter.retrieve(t_batches, dict(zip(code_names, codes.tolist())),
+                         TOPK, os.path.join(tmp, "term"))
+    torch.cuda.synchronize()
+    term_s = time.perf_counter() - t0
+    pred = torch.cat([model.encode(b["input_ids"], b["attention_mask"])[0]
+                      for b in t_batches])
+    codes_d = torch.from_numpy(codes).to(dev)
+    top_s = torch.full((TERM_QUERIES, TOPK), float("-inf"), device=dev)
+    top_i = torch.full((TERM_QUERIES, TOPK), -1, dtype=torch.int64,
+                       device=dev)
+    for s0 in range(0, TERM_DOCS, TERM_CHUNK):
+        sc = pred[:, codes_d[s0:s0 + TERM_CHUNK]].sum(-1)
+        rows = torch.arange(s0, s0 + sc.shape[1], device=dev).expand(
+            TERM_QUERIES, -1)
+        top_s, sel = torch.topk(torch.cat([top_s, sc], 1), TOPK, dim=1)
+        top_i = torch.cat([top_i, rows], 1).gather(1, sel)
+    acc = RunAccumulator(q_names[:TERM_QUERIES], code_names, TERM_DOCS,
+                         threshold=None, keep_empty=True)
+    acc.add_tile(np.arange(TERM_QUERIES), top_i.cpu().numpy(),
+                 top_s.cpu().numpy())
+    same_run(run_t, acc.to_run(), q_names[:TERM_QUERIES], 1e-5,
+             "term encoder vs a plain chunked top-k")
+    log(f"term encoder: {TERM_QUERIES} queries (the hybrid model's sparse "
+        f"head, through encode) over {TERM_DOCS} codes of {TERM_LEN} terms "
+        f"into run.json (k {TOPK}) in {term_s:.2f} s == a plain top-k of "
+        f"pred[:, codes].sum(-1) in {TERM_CHUNK}-doc chunks (tie-equal, rtol"
+        f" 1e-5); card {card_s}")
+    del pred, codes_d, top_s, top_i, ter
+    free()
+
+    # ---- (c) the reranker's bi-encoder body ----
+    lap("reranking")
+    corpus = os.path.join(tmp, "hyb_corpus.tsv")
+    qpath = os.path.join(tmp, "hyb_queries.tsv")
+    write_tsv(corpus, doc_names, docs)
+    write_tsv(qpath, q_names[:RERANK_Q], queries[:RERANK_Q])
+    first = {q: dict(sorted(runs["sparse"][q].items(),
+                            key=lambda kv: -kv[1])[:RERANK_D])
+             for q in q_names[:RERANK_Q]}
+    run_path = os.path.join(tmp, "rerank_in.json")
+    with open(run_path, "w") as f:
+        json.dump(first, f)
+    pairs_in = {(q, d) for q, ds in first.items() for d in ds}
+    doc_row = {n: i for i, n in enumerate(doc_names)}
+    for kind, enc in (("splade", LlamaBiSparse(model.params, model.config)),
+                      ("dense_encoder", LlamaBiDense(model.params,
+                                                     model.config)),
+                      ("hybrid_retriever", model)):
+        args = eval_reranker.build_parser().parse_args(
+            ["--run_path", run_path, "--query_path", qpath, "--corpus_path",
+             corpus, "--output_dir", os.path.join(tmp, f"rr_{kind}"),
+             "--rerank_type", kind, "--query_max_length", str(HYB_QLEN),
+             "--doc_max_length", str(HYB_DOC_LEN), "--eval_batch_size",
+             str(TILE), "--data_source", "msmarco", "--device", str(dev)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = eval_reranker.bi_encoder_rerank(
+            args, eval_reranker.load_pairs(args), model=enc, tokenizer=tok)
+        rr_s = time.perf_counter() - t0
+        check({(q, d) for q, ds in got.items() for d in ds} == pairs_in,
+              f"{kind}: the reranked pairs are not the input pairs")
+        # each score against the dot product of the pair's reps
+        q_reps = enc.encode(queries[:RERANK_Q],
+                            np.ones_like(queries[:RERANK_Q]))
+        qi = {q: i for i, q in enumerate(q_names[:RERANK_Q])}
+        names = sorted(pairs_in)
+        d_ids = docs[[doc_row[d] for _, d in names]]
+        want = []
+        for s0 in range(0, len(names), TILE):
+            d_reps = enc.encode(d_ids[s0:s0 + TILE],
+                                np.ones_like(d_ids[s0:s0 + TILE]))
+            sel = [qi[q] for q, _ in names[s0:s0 + TILE]]
+            if kind == "hybrid_retriever":
+                w_ = ((q_reps[0][sel] * d_reps[0]).sum(-1)
+                      + (q_reps[1][sel] * d_reps[1]).sum(-1))
+            else:
+                w_ = (q_reps[sel] * d_reps).sum(-1)
+            want.append(w_.float().cpu().numpy())
+        want = np.concatenate(want)
+        have = np.array([got[q][d] for q, d in names])
+        err = float(np.abs(have - want).max() / np.abs(want).max())
+        check(err <= RERANK_RTOL, f"{kind}: reranked scores differ from the "
+              f"pairs' rep dot products by {err:.2e} of the largest > "
+              f"{RERANK_RTOL}")
+        log(f"rerank {kind}: {RERANK_Q} queries x {RERANK_D} docs of the "
+            f"hybrid sparse run through eval_reranker's bi-encoder body in "
+            f"{rr_s:.2f} s; the output holds exactly its input pairs; each "
+            f"score == the dot product of the pair's reps from encode (max "
+            f"difference {err:.2e} of the largest score, limit "
+            f"{RERANK_RTOL}); card {card_s}")
+    del model
+    free()
+    log(f"phase 9 (a)-(c): {time.perf_counter() - t_phase:.1f} s; card "
+        f"{card_s}")
+    return {"hybrid sparse": sparse_l, "hybrid dense": dense_l}
+
+
+def t5_phase(dev, seed: int, card_s: str, tmp: str) -> dict:
+    """Phase 9 (d): T5 at google/t5-v1_1-base width, random bf16 weights
+    written as an HF checkpoint, trained through train_sparse's body
+    (--model_type t5), its adapter reloaded, merged and served back
+    through B1, B4 and B5. Returns the launch counts of that path."""
+    from scaling_retriever_tpu_torch.index.indexer import SparseIndexer
+    from scaling_retriever_tpu_torch.index.sparse_retrieval import \
+        SparseRetrieval
+    from scaling_retriever_tpu_torch.models import t5
+    from scaling_retriever_tpu_torch.models.t5_encoder import T5Sparse
+    from scaling_retriever_tpu_torch.models.weights import random_params
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+    from scaling_retriever_tpu_torch.ops import segsort_scoring as ss
+    from scaling_retriever_tpu_torch.parallel.mesh import shard_batch
+    from scaling_retriever_tpu_torch.training import train_sparse
+    from scaling_retriever_tpu_torch.training.trainer import tree_leaves
+
+    t_phase = time.perf_counter()
+
+    def lap(step: str) -> None:
+        log(f"phase 9 (d) at {time.perf_counter() - t_phase:.1f} s: {step}")
+
+    rng = np.random.default_rng(seed + 95)
+    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = t5.T5Config(**T5_V1_1_BASE, **bf16)
+    vocab = cfg.vocab_size
+    tok = StandInTokenizer(vocab, padding_side="right")
+
+    lap("checkpoint")
+    ckpt = os.path.join(tmp, "t5_ckpt")
+    t0 = time.perf_counter()
+    base = random_params(cfg, seed + 96, dev)
+    t5.save_pretrained(base, cfg, ckpt)
+    n_params = sum(p.numel() for p in base.parameters())
+    del base
+    free()
+    size = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
+    log(f"T5 at google/t5-v1_1-base width ({n_params} params, bf16, random "
+        f"from seed {seed + 96}) written as an HF checkpoint "
+        f"({size / 1e9:.2f} GB) in {time.perf_counter() - t0:.2f} s")
+
+    corpus = os.path.join(tmp, "t5_corpus.tsv")
+    doc_words = rng.integers(0, vocab, (max(TRAIN_DOCS, SERVE_DOCS), 160))
+    write_tsv(corpus, [f"p{d}" for d in range(len(doc_words))], doc_words)
+    train_path = os.path.join(tmp, "t5_train.jsonl")
+    with open(train_path, "w") as f:
+        for i in range(TRAIN_QUERIES):
+            negs = [int(x) for x in rng.choice(TRAIN_DOCS, 25, replace=False)
+                    if x != i][:24]
+            f.write(json.dumps({
+                "question": " ".join(f"w{t}" for t in doc_words[i][:80]),
+                "pos_pid": f"p{i}",
+                "neg_pids": [f"p{x}" for x in negs]}) + "\n")
+    out = os.path.join(tmp, "t5_out")
+    argv = ["--model_name_or_path", ckpt, "--model_type", "t5",
+            "--loss_type", "nce", "--corpus_path", corpus, "--train_path",
+            train_path, "--output_dir", out, "--data_source", "msmarco",
+            "--per_device_train_batch_size", str(TRAIN_Q), "--n_negs",
+            str(TRAIN_NEGS), "--query_max_length", str(TRAIN_QLEN),
+            "--doc_max_length", str(TRAIN_DLEN), "--fixed_length", "--bf16",
+            "--lora_r", "16", "--lora_alpha", "32", "--lora_dropout", "0.1",
+            "--learning_rate", str(T5_LR), "--warmup_ratio", "0",
+            "--max_steps", "1000", "--logging_steps", "1", "--device",
+            str(dev)]
+
+    lap("T5 sparse NCE")
+    groups = [(TRAIN_Q, TRAIN_QLEN), (TRAIN_Q * (1 + TRAIN_NEGS), TRAIN_DLEN)]
+    tokens = sum(r * t for r, t in groups)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer, _ = train_sparse.build_training(argv, "sparse", tokenizer=tok)
+    check(isinstance(trainer.encoder, T5Sparse), "not a T5Sparse")
+    trainer.args = dataclasses.replace(trainer.args, max_steps=T5_STEPS,
+                                       reg_T=REG_T)
+    with step_times() as ms:
+        trainer.train()
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = step_report(
+        f"T5 sparse NCE (google/t5-v1_1-base width), LoRA r 16 over both "
+        f"stacks, bf16, {TRAIN_Q} x (1 + {TRAIN_NEGS}) at "
+        f"{TRAIN_QLEN}/{TRAIN_DLEN} tokens ({tokens} tokens)", ms,
+        t5_flops(cfg, groups), tokens, peak, card_s)
+    logs = read_log(out)
+    check(len(logs) == T5_STEPS and all(
+        np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"])
+        for e in logs), f"T5 logs {logs}")
+    # the loss on one fixed batch before and after T5_FIXED_STEPS steps on
+    # it, both at the ramp weight of the first of them: the logged losses
+    # add the FLOPS regularizers at weights that ramp up per step, and
+    # random T5 reps are dense (scores near 25,000), so their rank term
+    # sits at 0 or jumps by hundreds
+    fixed = shard_batch(next(iter(trainer.train_loader)), trainer.mesh)
+    at = trainer.micro_step + 1
+
+    def fixed_loss():
+        with torch.no_grad():
+            total, parts = trainer._combined_loss(fixed, at)
+        return float(total), {k: float(v) for k, v in parts.items()}
+
+    before, parts0 = fixed_loss()
+    trainer.train_loader = [fixed] * T5_FIXED_STEPS
+    trainer.args = dataclasses.replace(trainer.args,
+                                       max_steps=T5_STEPS + T5_FIXED_STEPS)
+    trainer.train()
+    after, parts1 = fixed_loss()
+    logged = [round(e["loss"], 4) for e in read_log(out)[T5_STEPS:]]
+    check(np.isfinite(after) and after < before,
+          f"the T5 loss on one fixed batch did not fall: {before} -> "
+          f"{after} ({parts0} -> {parts1})")
+    log(f"T5 sparse NCE on one fixed batch, learning rate {T5_LR}, "
+        f"{T5_FIXED_STEPS} steps: loss at the ramp weight of step {at} "
+        f"{before:.6g} -> {after:.6g} ({parts0} -> {parts1}); the steps' "
+        f"logged losses {logged}")
+
+    def one_step():
+        trainer.micro_step += 1
+        trainer.step += 1
+        trainer._train_step(fixed, trainer.micro_step)
+
+    profile_tile("T5 sparse NCE micro step", one_step, card_s)
+
+    lap("T5 adapter")
+    adapter = os.path.join(tmp, "t5_adapter")
+    trainer.save_model(adapter)
+    with open(os.path.join(adapter, "adapter_config.json")) as f:
+        acfg = json.load(f)
+    check(acfg["auto_mapping"]["base_model_class"]
+          == "T5ForConditionalGeneration", f"adapter config {acfg}")
+    b_max = max(float(t.detach().abs().max())
+                for p_, t in tree_leaves(trainer.trainable)
+                if p_.endswith(".b"))
+    check(b_max > 0, "T5 training left every B factor at zero")
+    n_factors = len(tree_leaves(trainer.trainable))
+    probe = doc_words[:TILE, :TRAIN_DLEN]
+    mask = np.ones_like(probe)
+    mask[1::2, TRAIN_DLEN // 2:] = 0            # right padding
+    probe = probe * mask
+    unmerged = trainer.encoder.encode(probe, mask)
+    del trainer, fixed
+    free()
+    # float32: the adapter merged by load_from_lora against the same files
+    # loaded unmerged
+    merged32 = T5Sparse.load_from_lora(adapter, device=dev)
+    unmerged32 = T5Sparse.load(ckpt, lora_name_or_path=adapter,
+                               merge_peft=False, device=dev)
+    d32 = rel_l2(merged32.encode(probe, mask), unmerged32.encode(probe, mask))
+    del merged32, unmerged32
+    free()
+    check(d32 <= MERGE_F32_RTOL, f"merged T5 reps differ from the unmerged "
+          f"by {d32:.3e} (relative L2, f32) > {MERGE_F32_RTOL}")
+    merged = T5Sparse.load_from_lora(adapter, device=dev, **bf16)
+    base = T5Sparse.load(ckpt, device=dev, **bf16)
+    d_merge = rel_l2(merged.encode(probe, mask), unmerged)
+    d_adapter = rel_l2(unmerged, base.encode(probe, mask))
+    del base, unmerged
+    log(f"T5 adapter: save_model (peft T5 layout, {n_factors} factors), "
+        f"load_from_lora merged; relative L2 of {TILE} right-padded reps: "
+        f"merged vs unmerged {d32:.3e} in f32 (limit {MERGE_F32_RTOL}), "
+        f"{d_merge:.4f} in bf16 (not checked: random T5-base amplifies the "
+        f"merge's bf16 rounding), trained vs base {d_adapter:.4f} (bf16); "
+        f"largest |B| {b_max:.4f}")
+    free()
+
+    lap("T5 trained adapter served")
+    doc_ids = doc_words[:SERVE_DOCS, :TRAIN_DLEN]
+    names = [f"p{d}" for d in range(SERVE_DOCS)]
+    idx_dir = os.path.join(tmp, "t5_index")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = SparseIndexer(TopKReps(merged, CKPT_L0_D), idx_dir,
+                          device_sparsify_t=CKPT_T).index(
+        token_batches(doc_ids, names))["index"]
+    index_s = time.perf_counter() - t0
+    picks = rng.choice(SERVE_DOCS, SERVE_QUERIES, replace=False)
+    q_texts = [" ".join(f"w{t}" for t in doc_words[d][:int(n)])
+               for d, n in zip(picks, rng.integers(8, CKPT_QUERY_WORDS + 1,
+                                                   SERVE_QUERIES))]
+    qids = [f"q{i}" for i in range(SERVE_QUERIES)]
+    enc_q = tok(q_texts, max_length=CKPT_QUERY_WORDS, padding="max_length",
+                truncation=True)
+    q_batches = [{"input_ids": enc_q["input_ids"][s:s + TILE],
+                  "attention_mask": enc_q["attention_mask"][s:s + TILE],
+                  "ids": qids[s:s + TILE]}
+                 for s in range(0, SERVE_QUERIES, TILE)]
+    q_model = TopKReps(merged, L0_Q)
+    run_dir = os.path.join(tmp, "t5_run")
+    ret = SparseRetrieval(q_model, idx_dir, out_dir=run_dir, topk=TOPK,
+                          engine="segsort", device=dev)
+    cuda_lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ret.retrieve(q_batches)
+    torch.cuda.synchronize()
+    ret_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    with open(os.path.join(run_dir, "run.json")) as f:
+        run_kernels = json.load(f)
+    plain = ss.SegsortEngine(index, topk=TOPK, ops=ss.PLAIN, device=dev)
+    qt, qv = ss.sparsify_reps_device(torch.cat([
+        q_model.encode(b["input_ids"], b["attention_mask"])
+        for b in q_batches]), plain.T)
+    same_run(run_kernels, engine_run(plain, qt, qv, qids, index.doc_ids,
+                                     index.nb_docs()),
+             qids, 1e-5, "the T5 adapter's run: kernel vs plain path")
+    log(f"T5 trained adapter served: {SERVE_DOCS} docs indexed by "
+        f"SparseIndexer in {index_s:.1f} s ({index.nnz} postings), "
+        f"{SERVE_QUERIES} right-padded doc-prefix queries into run.json in "
+        f"{ret_s:.2f} s == the plain-ops engine (tie-equal, rtol 1e-5); "
+        f"launches {launches}; card {card_s}")
+    del merged, plain, ret, index
+    free()
+    log(f"phase 9 (d): {time.perf_counter() - t_phase:.1f} s; card "
+        f"{card_s}")
+    return {"t5 trained adapter": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3152,7 +3706,7 @@ def main(argv=None) -> int:
 
 
 def run(dev, seed: int, card_s: str) -> list:
-    """Phases 2-8 on ``dev``; returns the per-kernel report entries."""
+    """Phases 2-9 on ``dev``; returns the per-kernel report entries."""
     from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
 
     t0 = time.perf_counter()
@@ -3236,12 +3790,25 @@ def run(dev, seed: int, card_s: str) -> list:
         free()
         trained = training_phase(dev, os.path.join(tmp, "ckpt"), seed,
                                  card_s, tmp)
-    for path, counts in trained.items():
+        for path, counts in trained.items():
+            log(f"launches over the {path} path: {counts}")
+        paths.update(trained)
+        log("phase 8: training at Llama-3.2-1B width (sparse NCE, remat, "
+            "accumulation and resume, dense NCE, MNTP), the trained adapter "
+            "served through B1, B4 and B5")
+        p9 = os.path.join(tmp, "p9")
+        os.makedirs(p9)
+        t9 = time.perf_counter()
+        extra = hybrid_phase(dev, os.path.join(tmp, "ckpt"), seed, card_s, p9)
+        extra.update(t5_phase(dev, seed, card_s, p9))
+    for path, counts in extra.items():
         log(f"launches over the {path} path: {counts}")
-    paths.update(trained)
-    log("phase 8: training at Llama-3.2-1B width (sparse NCE, remat, "
-        "accumulation and resume, dense NCE, MNTP), the trained adapter "
-        "served through B1, B4 and B5")
+    paths.update(extra)
+    log(f"phase 9: hybrid retrieval at Llama-3.2-1B width (sparse through "
+        f"B1, B4 and B5, dense through B5), the term-encoder retriever, the "
+        f"reranker's bi-encoder body, and T5 at google/t5-v1_1-base width "
+        f"trained and served through B1, B4 and B5, in "
+        f"{time.perf_counter() - t9:.1f} s")
     report.append(entry)
     for path, kernels in PATH_KERNELS.items():
         missing = [k_ for k_ in kernels if paths[path][k_] == 0]

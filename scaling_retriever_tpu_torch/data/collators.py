@@ -1,6 +1,7 @@
 """Collators (port of data/collators.py): the training collators, one per
-loss's batch layout, and the collection collators of (id, text) batches,
-each tokenizing into numpy arrays.
+loss's batch layout, the collection collators of (id, text) batches, and
+the rerank collators of (qid, docid, ...) pairs, each tokenizing into
+numpy arrays.
 
 The tokenizer is any callable with the Hugging Face call protocol:
 ``tokenizer(texts, truncation=True, max_length=..., padding="longest" or
@@ -129,6 +130,10 @@ LlamaDenseCollatorForNCE = LlamaSparseCollatorForNCE
 LlamaDenseCollatorForKLDiv = LlamaSparseCollatorForKLDiv
 LlamaDenseCollatorForNCE_KLDiv = LlamaSparseCollatorForNCE_KLDiv
 LlamaDenseCollatorForMarginMSE = LlamaSparseCollatorForMarginMSE
+# T5: the same layouts; the decoder's input ids are the input ids, which
+# T5Sparse.encode_pure sets itself
+T5SparseCollatorForNCE = LlamaSparseCollatorForNCE
+T5SparseCollatorForMarginMSE = LlamaSparseCollatorForMarginMSE
 
 
 class LlamaSparseCollectionCollator:
@@ -152,3 +157,50 @@ class LlamaSparseCollectionCollator:
 LlamaDenseCollectionCollator = LlamaSparseCollectionCollator
 LlamaHybridCollectionCollator = LlamaSparseCollectionCollator
 T5SparseCollectionCollator = LlamaSparseCollectionCollator
+
+
+class HybridRetrieverRerankCollator(_Base):
+    """(qid, docid, query, doc) pairs → ids and both sides tokenized."""
+
+    def __call__(self, batch):
+        qids, docids, queries, docs = [list(x) for x in zip(*batch)]
+        return {
+            "qids": qids,
+            "docids": docids,
+            "tokenized_queries": self._tok_q(queries),
+            "tokenized_docs": self._tok_d(docs),
+        }
+
+
+class RerankerInferenceCollator:
+    """(qid, docid, "prefixed query and doc" text) → one tokenized text per
+    pair, for a cross-encoder."""
+
+    def __init__(self, tokenizer, max_length: int, pad_to_multiple_of: int = 16,
+                 fixed_length: bool = False):
+        self.tokenizer = tokenizer
+        self.max_length = max_length
+        self.pad_to_multiple_of = pad_to_multiple_of
+        self.fixed_length = fixed_length
+
+    def __call__(self, batch):
+        qids, docids, text_pairs = [list(x) for x in zip(*batch)]
+        toks = _tokenize(self.tokenizer, text_pairs, self.max_length,
+                         self.pad_to_multiple_of, self.fixed_length)
+        return {"qids": qids, "docids": docids, "tokenized_texts": toks}
+
+
+class BertRerankerInferenceCollator:
+    """(qid, docid, query, doc) → the (query, doc) pair tokenized together,
+    with the tokenizer's token-type ids."""
+
+    def __init__(self, tokenizer, max_length: int):
+        self.tokenizer = tokenizer
+        self.max_length = max_length
+
+    def __call__(self, batch):
+        qids, docids, queries, docs = [list(x) for x in zip(*batch)]
+        enc = self.tokenizer(queries, docs, padding=True, truncation=True,
+                             max_length=self.max_length)
+        toks = {k: np.asarray(v) for k, v in enc.items()}
+        return {"qids": qids, "docids": docids, "tokenized_texts": toks}

@@ -1,17 +1,18 @@
 """Map-style datasets (port of data/datasets.py): the training datasets,
 which draw negatives with Python's ``random.Random(seed)`` as the
 reference does (so both packages draw the same ones), and the inference
-datasets. Any object with ``__len__``/``__getitem__`` feeds
-``data/loader.py``'s DataLoader."""
+datasets, and the rerank datasets of (qid, docid) pairs. Any object with
+``__len__``/``__getitem__`` feeds ``data/loader.py``'s DataLoader."""
 
 from __future__ import annotations
 
 import json
 import random
-from typing import Optional
+from typing import Optional, Sequence
 
 from scaling_retriever_tpu_torch.data.io import (
-    get_doc_text, read_msmarco_corpus, read_msmarco_query, read_wiki_corpus,
+    get_doc_text, load_beir_dataset, read_msmarco_corpus, read_msmarco_query,
+    read_wiki_corpus,
 )
 
 
@@ -155,6 +156,72 @@ class MSMARCOQueryDataset:
         return qid, self.qid_to_query[qid]
 
 
+class HybridRetrieverRerankDataset:
+    """(qid, pid, query, doc) per pair, for bi-encoder reranking."""
+
+    def __init__(self, qid_pid_pairs: Sequence, query_path: str,
+                 corpus_path: str, data_source: Optional[str] = None):
+        self.qid_pid_pairs = list(qid_pid_pairs)
+        if data_source == "msmarco":
+            self.pid_to_doc = read_msmarco_corpus(corpus_path)
+        elif data_source == "wiki":
+            self.pid_to_doc = read_wiki_corpus(corpus_path)
+        else:
+            raise ValueError(data_source)
+        self.qid_to_query = read_msmarco_query(query_path)
+
+    def __len__(self):
+        return len(self.qid_pid_pairs)
+
+    def __getitem__(self, idx):
+        qid, pid = self.qid_pid_pairs[idx]
+        return (qid, pid, self.qid_to_query[qid],
+                get_doc_text(*self.pid_to_doc[pid]))
+
+
+class RerankerInferenceDataset:
+    """(qid, pid, "query_prefix q doc_prefix d") per pair, for
+    cross-encoders; both prefixes are required."""
+
+    def __init__(self, qid_pid_pairs: Sequence, query_path: str,
+                 corpus_path: str, query_prefix: Optional[str] = None,
+                 doc_prefix: Optional[str] = None):
+        self.qid_pid_pairs = list(qid_pid_pairs)
+        self.qid_to_query = read_msmarco_query(query_path)
+        self.pid_to_doc = read_msmarco_corpus(corpus_path)
+        if query_prefix is None or doc_prefix is None:
+            raise ValueError("query_prefix and doc_prefix are required")
+        self.query_prefix = query_prefix
+        self.doc_prefix = doc_prefix
+
+    def __len__(self):
+        return len(self.qid_pid_pairs)
+
+    def __getitem__(self, idx):
+        qid, pid = self.qid_pid_pairs[idx]
+        query = self.qid_to_query[qid]
+        doc = get_doc_text(*self.pid_to_doc[pid])
+        return qid, pid, f"{self.query_prefix} {query} {self.doc_prefix} {doc}"
+
+
+class BertRerankerInferenceDataset:
+    """(qid, pid, query, doc) per pair over an MSMARCO corpus."""
+
+    def __init__(self, qid_pid_pairs: Sequence, query_path: str,
+                 corpus_path: str):
+        self.qid_pid_pairs = list(qid_pid_pairs)
+        self.qid_to_query = read_msmarco_query(query_path)
+        self.pid_to_doc = read_msmarco_corpus(corpus_path)
+
+    def __len__(self):
+        return len(self.qid_pid_pairs)
+
+    def __getitem__(self, idx):
+        qid, pid = self.qid_pid_pairs[idx]
+        return (qid, pid, self.qid_to_query[qid],
+                get_doc_text(*self.pid_to_doc[pid]))
+
+
 class BeirDataset:
     """(key, text) over a BEIR corpus ("title text") or query dict."""
 
@@ -177,3 +244,22 @@ class BeirDataset:
     def __getitem__(self, idx):
         key = self.idx_to_key[idx]
         return key, self.value_dictionary[key]
+
+
+class BeirRerankDataset:
+    """(qid, docid, query, "title text") per pair from a local BEIR
+    directory (its test split)."""
+
+    def __init__(self, data_path: str, qid_docid_pairs: Sequence):
+        corpus, queries, _ = load_beir_dataset(data_path, split="test")
+        self.key_to_doc = {k: v["title"] + " " + v["text"]
+                           for k, v in corpus.items()}
+        self.key_to_query = queries
+        self.qid_docid_pairs = list(qid_docid_pairs)
+
+    def __len__(self):
+        return len(self.qid_docid_pairs)
+
+    def __getitem__(self, idx):
+        qid, docid = self.qid_docid_pairs[idx]
+        return qid, docid, self.key_to_query[qid], self.key_to_doc[docid]

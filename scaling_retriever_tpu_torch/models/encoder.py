@@ -1,7 +1,7 @@
 """Retriever encoders (port of models/encoder.py): the sparse and dense
 classes of the Llama, Qwen2 and Mistral families, their training losses
 (``loss_forward``), checkpoint and adapter loading and saving, and the
-model registry. The T5 family is not ported yet (ROADMAP A12).
+model registry (the T5 family lives in ``models/t5_encoder.py``).
 
 ``LLM2Retriever`` owns (params, lora, config). ``params`` is the
 ``LlamaBiForMNTP`` module holding the weights, the counterpart of the JAX
@@ -30,10 +30,6 @@ from scaling_retriever_tpu_torch.models.lora import (LoraConfig,
                                                     load_adapter, merge_lora,
                                                     save_adapter)
 from scaling_retriever_tpu_torch.ops.pooling import dense_pool, sparse_pool
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def _resolve_model_dir(name_or_path: str) -> str:
@@ -355,12 +351,19 @@ Qwen2BiDenseForNCE_KLDiv = _variant(Qwen2BiDense, "nce_kldiv",
 
 
 class _Registry(dict):
-    """(model_type, pooling, loss) → encoder class. The reference
-    registers T5 on first lookup; the T5 family is not ported."""
+    """(model_type, pooling, loss) → encoder class. T5 (sparse, nce or
+    margin_mse) registers on first lookup, as in the reference:
+    ``models/t5_encoder.py`` imports this module."""
 
     def __missing__(self, key):
         if key and key[0] == "t5":
-            raise _not_ported("the T5 family", "A12")
+            from scaling_retriever_tpu_torch.models.t5_encoder import (
+                T5Sparse, T5SparseForMarginMSE)
+
+            self[("t5", "sparse", "nce")] = T5Sparse
+            self[("t5", "sparse", "margin_mse")] = T5SparseForMarginMSE
+            if key in self:
+                return self[key]
         raise KeyError(key)
 
 

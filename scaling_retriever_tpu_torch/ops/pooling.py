@@ -2,6 +2,9 @@
 
   * sparse: logits scaled by ``hidden_size**-0.25``, then
     ``log(relu(max_seq(x + (1-mask) * -1e6)) + 1)``: max BEFORE relu/log;
+  * sparse per token (the T5 head): ``max_s(log1p(relu(x)) * mask)``:
+    log per token, THEN the max, with the ``d_model**-0.25`` scale only
+    when the caller asks (the reference scales only at d_model >= 2048);
   * dense: per-token L2 normalize BEFORE the masked mean.
 
 The sparse head's masked max runs over vocabulary chunks and keeps the
@@ -57,6 +60,20 @@ def sparse_pool(seq_logits: torch.Tensor, attention_mask: torch.Tensor,
     pooled = _MaskedMax.apply(seq_logits, penalty,
                               float(hidden_size) ** -0.25)
     return torch.log(torch.relu(pooled) + 1.0)
+
+
+def sparse_pool_per_token(seq_logits: torch.Tensor,
+                          attention_mask: torch.Tensor, d_model: int,
+                          scale: bool) -> torch.Tensor:
+    """[B, S, V] decoder logits → [B, V] f32 reps, T5-style:
+    ``max_s(log1p(relu(x)) * mask)``, x scaled by ``d_model**-0.25`` when
+    ``scale``. Plain autograd (each f32 copy it keeps is 2.2 GB at the T5
+    recipe's 136 x 128 x 32,128)."""
+    x = seq_logits.float()
+    if scale:
+        x = x * (float(d_model) ** -0.25)
+    per_tok = torch.log1p(torch.relu(x)) * attention_mask.float()[:, :, None]
+    return per_tok.amax(dim=1)
 
 
 def dense_pool(hidden: torch.Tensor, attention_mask: torch.Tensor

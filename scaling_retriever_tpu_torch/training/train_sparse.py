@@ -10,7 +10,8 @@ the regularizer ramp over ``max_steps // 3``, train, save the adapter.
 
 The flags are the reference's, plus ``--device`` (default "cuda"). On one
 card ``--fsdp`` trains replicated, as the reference does on a data axis of
-one. ``--model_type t5`` is not ported yet (ROADMAP A12).
+one. ``--model_type t5`` trains T5Sparse (nce or margin_mse only, no
+``--remat``, as in the reference) and saves a peft T5 adapter.
 """
 
 from __future__ import annotations
@@ -102,8 +103,11 @@ def build_training(argv, pooling: str, tokenizer=None):
     parser = argparse.ArgumentParser(description=__doc__)
     add_args(parser, pooling)
     ns = parser.parse_args(argv)
-    if ns.model_type == "t5":
-        MODEL_REGISTRY[("t5", pooling, ns.loss_type)]    # raises (A12)
+    if ns.model_type == "t5" and ns.loss_type not in ("nce", "margin_mse"):
+        parser.error("t5 supports loss_type nce|margin_mse only")
+    if ns.model_type == "t5" and REMAT[ns.remat]:
+        parser.error("--remat applies to the decoder-only stacks; the T5 "
+                     "checkpoints trained here fit without it")
 
     fields = {f.name for f in dataclasses.fields(LLM2RetrieverTrainingArgs)}
     args = LLM2RetrieverTrainingArgs(
@@ -127,9 +131,9 @@ def build_training(argv, pooling: str, tokenizer=None):
                         seed=ns.seed, drop_last=True)
     dt = torch.bfloat16 if ns.bf16 else torch.float32
     model_cls = MODEL_REGISTRY[(ns.model_type, pooling, ns.loss_type)]
+    remat = {} if ns.model_type == "t5" else {"remat": REMAT[ns.remat]}
     encoder = model_cls.build(ns.model_name_or_path, args, device=mesh.device,
-                              param_dtype=dt, dtype=dt,
-                              remat=REMAT[ns.remat])
+                              param_dtype=dt, dtype=dt, **remat)
     return Trainer(encoder, args, loader, mesh=mesh), ns
 
 

@@ -112,3 +112,74 @@ def test_collection_collator_equal(files, tmp_path_factory, fixed_length):
         assert a[k].dtype == np.int32 and np.array_equal(a[k], b[k])
     assert collators.T5SparseCollectionCollator is \
         collators.LlamaSparseCollectionCollator
+
+
+def _items(ds):
+    return [ds[i] for i in range(len(ds))]
+
+
+def _same_batch(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], dict):
+            _same_batch(a[k], b[k])
+        elif isinstance(a[k], np.ndarray):
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+        else:
+            assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("kind", ["hybrid_msmarco", "hybrid_wiki", "cross",
+                                  "bert", "beir"])
+def test_rerank_datasets_and_collators_equal(files, tmp_path_factory, kind):
+    """The rerank half: each dataset's items and its collator's batch equal
+    the JAX package's (token arrays bit-equal)."""
+    tok = make_tiny_tokenizer(str(tmp_path_factory.mktemp("tok")))
+    q = str(files / "queries.tsv")
+    if kind.startswith("hybrid"):
+        source = kind.split("_")[1]
+        pids = ["d1", "d4", "d9"] if source == "msmarco" else ["p0", "p6"]
+        pairs = [(f"q{i}", p) for i in range(3) for p in pids]
+        args = (pairs, q, str(files / f"{source}.tsv"))
+        kw = {"data_source": source}
+        names = ("HybridRetrieverRerankDataset",
+                 "HybridRetrieverRerankCollator", (tok, 8, 16))
+    elif kind == "cross":
+        pairs = [(f"q{i}", f"d{2 * i}") for i in range(5)]
+        args = (pairs, q, str(files / "msmarco.tsv"))
+        kw = {"query_prefix": "query:", "doc_prefix": "document:"}
+        names = ("RerankerInferenceDataset", "RerankerInferenceCollator",
+                 (tok, 32))
+    elif kind == "bert":
+        pairs = [(f"q{i}", f"d{i + 3}") for i in range(4)]
+        args = (pairs, q, str(files / "msmarco.tsv"))
+        kw = {}
+        names = ("BertRerankerInferenceDataset",
+                 "BertRerankerInferenceCollator", (tok, 10))
+    else:
+        pairs = [("0", "b1"), ("2", "b5"), ("1", "b0")]
+        args = (str(files / "beir"), pairs)
+        kw = {}
+        names = ("BeirRerankDataset", "BertRerankerInferenceCollator",
+                 (tok, 10))
+    ds_name, coll_name, coll_args = names
+    mine = getattr(datasets, ds_name)(*args, **kw)
+    theirs = getattr(ref_datasets, ds_name)(*args, **kw)
+    assert _items(mine) == _items(theirs) and len(mine) == len(pairs)
+    _same_batch(getattr(collators, coll_name)(*coll_args)(_items(mine)),
+                getattr(ref_collators, coll_name)(*coll_args)(_items(theirs)))
+    if kind == "cross":
+        with pytest.raises(ValueError, match="prefix"):
+            datasets.RerankerInferenceDataset(*args)
+    if kind == "hybrid_msmarco":
+        with pytest.raises(ValueError):
+            datasets.HybridRetrieverRerankDataset(*args, data_source=None)
+
+
+def test_t5_training_collators_are_the_llama_layouts():
+    assert collators.T5SparseCollatorForNCE is \
+        collators.LlamaSparseCollatorForNCE
+    assert collators.T5SparseCollatorForMarginMSE is \
+        collators.LlamaSparseCollatorForMarginMSE
+    assert collators.LlamaHybridCollectionCollator is \
+        collators.LlamaSparseCollectionCollator

@@ -112,3 +112,14 @@ def test_training_slice_modules_are_scanned():
                 "training/trainer.py", "training/train_sparse.py",
                 "training/train_dense.py", "training/mntp.py"):
         assert mod in files, mod
+
+
+def test_hybrid_rerank_and_t5_slice_modules_are_scanned():
+    """The hybrid, term-encoder, reranker and T5 modules are among the
+    files the checks above cover."""
+    files = {os.path.relpath(p, PKG) for p in _port_files()
+             if p.startswith(PKG)}
+    for mod in ("index/hybrid.py", "index/term_encoder.py",
+                "evaluation/eval_reranker.py", "models/t5.py",
+                "models/t5_encoder.py"):
+        assert mod in files, mod

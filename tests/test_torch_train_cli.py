@@ -4,7 +4,9 @@ the CLI; the adapter the port trains loads in the JAX package and encodes
 as the port's model does (rtol 1e-4, atol 1e-5, as
 test_torch_encoder_load.py); a JAX-trained adapter resumes training in
 the port; ``--no_lora`` writes a checkpoint the JAX package loads;
-``--model_type t5`` raises the port's A12 error."""
+``--model_type t5`` trains T5Sparse into a peft T5 adapter that the JAX
+package loads and encodes with as the port does, and refuses what the
+reference refuses for T5."""
 
 import json
 import os
@@ -22,7 +24,8 @@ from scaling_retriever_tpu_torch.training import train_dense, train_sparse
 from scaling_retriever_tpu_torch.training.trainer import Trainer, tree_leaves
 
 sys.path.insert(0, os.path.dirname(__file__))
-from helpers import make_msmarco_style_data, make_tiny_llama_dir  # noqa: E402
+from helpers import (make_msmarco_style_data, make_tiny_llama_dir,  # noqa: E402
+                     make_tiny_t5_dir)
 
 torch.set_num_threads(1)
 
@@ -169,6 +172,31 @@ def test_jax_adapter_resumes_training_in_the_port(files, tmp_path):
 
 
 def test_t5_raises_not_ported(files, tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
-        train_sparse.build_training(
-            _argv(files, tmp_path, "nce", "--model_type", "t5"), "sparse")
+    """``--model_type t5``: nce trains T5Sparse through the Trainer and
+    saves a peft T5 adapter; the JAX package's T5Sparse loads it and
+    encodes as the port's does (rtol 1e-4, atol 1e-5). kldiv and
+    ``--remat`` are refused, as in the reference."""
+    from scaling_retriever_tpu.models.t5_encoder import T5Sparse as RefT5
+    from scaling_retriever_tpu_torch.models.t5_encoder import T5Sparse
+
+    t5_dir = make_tiny_t5_dir(str(tmp_path / "t5"))
+    argv = _argv(files, tmp_path / "out", "nce", "--model_type", "t5")
+    argv[argv.index("--model_name_or_path") + 1] = t5_dir
+    trainer = train_sparse.main(argv)
+    assert isinstance(trainer.encoder, T5Sparse) and trainer.step == 3
+    with open(tmp_path / "out" / "adapter_config.json") as f:
+        cfg = json.load(f)
+    assert cfg["auto_mapping"]["base_model_class"] == \
+        "T5ForConditionalGeneration"
+    assert set(cfg["target_modules"]) == {"q", "k", "v", "o", "wi_0",
+                                          "wi_1", "wo"}
+    port = T5Sparse.load_from_lora(str(tmp_path / "out"), device="cpu")
+    ref = RefT5.load_from_lora(str(tmp_path / "out"))
+    ids, mask = _ids()
+    mask = mask[:, ::-1].copy()          # T5 pads on the right
+    np.testing.assert_allclose(port.encode(ids, mask).numpy(),
+                               np.asarray(ref.encode(ids, mask)),
+                               rtol=RTOL, atol=ATOL)
+    for extra in (("--loss_type", "kldiv"), ("--remat", "full")):
+        with pytest.raises(SystemExit):
+            train_sparse.build_training(argv + list(extra), "sparse")
