@@ -103,7 +103,24 @@ Phases (any failure raises and exits non-zero):
      indexing 4,096 docs and answering 256 right-padded queries into
      run.json through B1, B4 and B5 (== the plain-ops engine); launch
      counts read as in 4;
- 10. print the card, per-kernel numbers as one JSON line, and last
+ 10. the sharded entry points, on meshes whose entries repeat the one
+     card: (a) after phase 5, over its host index split by
+     shard_by_rows into 4 shards, SparseRetrieval(mesh=) on the segsort
+     engine over the Dev-size stream (f32; against phase 5's single
+     engine: scores bit-equal, ids tie-equal), q8 and bf16 engines from
+     the same split on 1,024 queries, one tile of every shard against
+     the plain-ops sharded engine, 128 requests served through
+     RetrievalServer, the sharded "xla" scan on phase 5's texts, and
+     eval_sparse --use_mesh (the one-device path on one card: the same
+     run.json); (b) inside phase 6, the bf16 store as 4 row-range views
+     through make_sharded_dense_search against the direct search (1,024
+     queries, k 1000), the int8 codes on a cut (bit-equal), and
+     MeshDenseRetriever against LocalDenseRetriever over 65,536 rows
+     written as embedding files; (c) inside phase 8, the Trainer two
+     steps at the recipe's micro batch on a (data 4, fsdp) and a (data
+     2, model 2) mesh, losses bit-equal to a one-entry mesh; launch
+     counts read as in 4;
+ 11. print the card, per-kernel numbers as one JSON line, and last
      {"ok": true, "device": {...}}.
 """
 
@@ -115,6 +132,7 @@ import dataclasses
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -141,8 +159,9 @@ BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 
 
 # the kernels each serving path (phase 4), offline path (phase 5), dense
-# path (phase 6), checkpoint and training path (phases 7, 8) and hybrid
-# and T5 path (phase 9) must launch; topm_dense is B5 at its dense site
+# path (phase 6), checkpoint and training path (phases 7, 8), hybrid and
+# T5 path (phase 9) and sharded path (phase 10a) must launch; topm_dense
+# is B5 at its dense site
 PATH_KERNELS = {
     "text q8 + pre-encoded f32": ("fetch_f32", "fetch_q8", "segsum", "topm"),
     "pre-encoded bf16": ("fetch_bf16", "segsum", "topm"),
@@ -160,6 +179,10 @@ PATH_KERNELS = {
     "hybrid sparse": ("fetch_f32", "segsum", "topm"),
     "hybrid dense": ("topm_dense",),
     "t5 trained adapter": ("fetch_f32", "segsum", "topm"),
+    "sharded f32": ("fetch_f32", "segsum", "topm"),
+    "served sharded": ("fetch_f32", "segsum", "topm"),
+    "sharded q8": ("fetch_q8", "segsum", "topm"),
+    "sharded bf16": ("fetch_bf16", "segsum", "topm"),
 }
 
 
@@ -1216,6 +1239,30 @@ def engine_run(eng, qt, qv, ids, doc_ids, n_docs, k=None) -> dict:
     return acc.to_run()
 
 
+def stream_arrays(eng, qt, qv, k=None) -> tuple[np.ndarray, np.ndarray]:
+    """The engine's top-``k`` (default TOPK) over the queries in TILE-wide
+    tiles (depth-2 pipeline): (rows int64, scores f32) [nq, k] host
+    arrays, as ``same_topk`` takes them."""
+    from scaling_retriever_tpu_torch.utils.utils import depth2_pipeline
+
+    k = k or TOPK
+    rows = np.empty((len(qt), k), np.int64)
+    scores = np.empty((len(qt), k), np.float32)
+
+    def dispatch(s):
+        return s, eng.retrieve_tile_async(
+            None, k, sparsified=(qt[s:s + TILE], qv[s:s + TILE]))
+
+    def drain(p):
+        s, payload = p
+        sc, r = eng.finalize(payload)
+        scores[s:s + len(sc)] = sc
+        rows[s:s + len(sc)] = r
+
+    depth2_pipeline(range(0, len(qt), TILE), dispatch, drain)
+    return rows, scores
+
+
 def log_stats(label: str, st: dict, card_s: str) -> None:
     spans = {k: (v["count"], v["total_s"], v["max_s"])
              for k, v in st["spans"].items()}
@@ -1340,8 +1387,9 @@ def offline_phase(dev, model, index, cindex, cfg, seed, card_s,
     """Phase 5: eval_sparse's path (SparseRetrieval over a query stream,
     run.json, evaluate_msmarco) at MSMARCO scale. Its files go under
     ``tmp``; the CLI's index cut stays there (``tmp/index_cut``) for phase
-    6. Returns the launch counts of each offline path, each read over
-    exactly that path."""
+    6. Returns (the launch counts of each offline path, each read over
+    exactly that path; the single engines' results phase 10a holds the
+    sharded paths against)."""
     from scaling_retriever_tpu_torch.data.collators import \
         LlamaSparseCollectionCollator
     from scaling_retriever_tpu_torch.data.loader import DataLoader
@@ -1391,6 +1439,13 @@ def offline_phase(dev, model, index, cindex, cfg, seed, card_s,
                      write_run=False)
     paths["offline f32"] = dict(cuda_lib.LAUNCHES)
     log_stats(f"f32, {DEV_QUERIES} queries (engine {ret.engine})", st, card_s)
+    # what phase 10a holds the sharded paths against
+    seg = ret._seg
+    refs = {"qt": qt, "qv": qv, "ids": ids, "f32": stream_arrays(seg, qt, qv),
+            "f32_qps": st["steady_qps"],
+            "f32_bytes": seg.rows_flat.nbytes + seg.valbits_flat.nbytes
+            + seg.offsets.nbytes}
+    del seg
     run_f32, _ = retrieve(ret, sparse_batches(qt[chk], qv[chk], ids[chk]))
     plain = ss.SegsortEngine(topk=TOPK, ops=ss.PLAIN, device_csr=(
         ret._seg.rows_flat, ret._seg.valbits_flat, index.offsets, N_DOCS))
@@ -1411,6 +1466,7 @@ def offline_phase(dev, model, index, cindex, cfg, seed, card_s,
     run_plain_fin = engine_run(plain, qt[fin], qv[fin], ids[fin],
                                index.doc_ids, N_DOCS)
     same_run(run_fin, run_plain_fin, ids[fin], 1e-5, "f32 run.json vs plain")
+    refs["run_fin"] = run_fin
     log(f"offline f32 == plain-ops engine on the first {CHECK_Q} and the "
         f"last {RUN_Q} queries (tie-equal, rtol 1e-5)")
 
@@ -1483,6 +1539,7 @@ def offline_phase(dev, model, index, cindex, cfg, seed, card_s,
     run_xla, st_xla = retrieve(xla, loader)
     same_run(run_text, run_xla, batch["ids"], 1e-6, "text vs xla")
     log_stats("xla engine, the same texts", st_xla, card_s)
+    refs["texts"] = (loader, run_xla, batch["ids"])
     del xla
     free()
 
@@ -1509,6 +1566,7 @@ def offline_phase(dev, model, index, cindex, cfg, seed, card_s,
                          write_run=False)
         paths[f"offline {vd}"] = dict(cuda_lib.LAUNCHES)
         log_stats(f"{vd}, {DEV_QUERIES} queries", st, card_s)
+        refs[vd] = stream_arrays(r2._seg, qt[:MESH_Q], qv[:MESH_Q])
         run_v, _ = retrieve(r2, sparse_batches(qt[chk], qv[chk], ids[chk]))
         same_run(run_v, run_f32, ids[chk], rtol, f"{vd} vs f32")
         log(f"offline {vd} == f32 on the first {CHECK_Q} queries "
@@ -1601,6 +1659,7 @@ def offline_phase(dev, model, index, cindex, cfg, seed, card_s,
     check(len(runs[0]) == RUN_Q, f"CLI run has {len(runs[0])} queries")
     same_run(runs[1], runs[0], ids[fin], 1e-6, "CLI two passes vs one")
     check(qs["passes"][1]["warmup_tiles"] == 0, "pass 2 ran warmup tiles")
+    refs["cli"] = (reps_path, cut_dir, outs["one pass"])
     # maxscore where its certificate holds: every list of the cut is inside
     # the prefix, so the bound is 0 and each tile's result is the prefix
     # engine's top-C rescored exactly (rescore_candidates), held against
@@ -1649,6 +1708,239 @@ def offline_phase(dev, model, index, cindex, cfg, seed, card_s,
         f"peak card memory "
         f"{max(peaks + [torch.cuda.max_memory_allocated(dev)]) / 1e9:.2f} "
         f"GB allocated; card {card_s}")
+    return paths, refs
+
+
+# ---- phase 10a: the sharded sparse entry points, on four shards of the
+# card (between phases 5 and 6, over phase 5's host corpus)
+
+MESH_SHARDS = 4
+MESH_Q = 1_024                # the q8 and bf16 sharded runs
+MESH_SERVED = 128
+
+
+def plain_twin(eng):
+    """The sharded engine ``eng`` over the same device arrays, each shard
+    on the plain versions of the kernels."""
+    import copy
+
+    from scaling_retriever_tpu_torch.ops import segsort_scoring as ss
+
+    twin = copy.copy(eng)
+    twin.shards = [ss.SegsortEngine(
+        topk=e.topk, query_terms_budget=e.T, ops=ss.PLAIN, device_csr=(
+            e.rows_flat, e.valbits_flat, e._host_offsets, e.n_docs))
+        for e in eng.shards]
+    return twin
+
+
+def mesh_sparse_phase(dev, model, index, refs: dict, card_s: str,
+                      tmp: str) -> dict:
+    """Phase 10a: SparseRetrieval over a mesh of MESH_SHARDS entries of
+    ``dev`` (the ShardedSegsortEngine; its split of phase 5's index kept
+    for the q8 and bf16 engines), the Dev-size stream against phase 5's
+    single engine, q8 and bf16, the sharded "xla" scan on phase 5's texts,
+    served requests, one tile against the plain kernels, and eval_sparse
+    --use_mesh. Returns the launch counts of each sharded path."""
+    from scaling_retriever_tpu_torch.evaluation import eval_sparse
+    from scaling_retriever_tpu_torch.index.sparse_retrieval import \
+        SparseRetrieval
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+    from scaling_retriever_tpu_torch.ops import segsort_scoring as ss
+    from scaling_retriever_tpu_torch.parallel.mesh import make_mesh
+    from scaling_retriever_tpu_torch.serving.server import (
+        RetrievalServer, SparseTileBackend)
+    from scaling_retriever_tpu_torch.utils.profiling import reset_timings
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def lap(step: str) -> None:
+        log(f"phase 10a at {time.perf_counter() - t_phase:.1f} s: {step}")
+
+    def retrieve(ret, batches, **kw):
+        reset_timings()
+        return ret.retrieve(batches, **kw)
+    paths = {}
+    mesh = make_mesh(devices=[dev] * MESH_SHARDS)
+    qt, qv, ids = refs["qt"], refs["qv"], refs["ids"]
+    fin = slice(DEV_QUERIES - RUN_Q, DEV_QUERIES)
+
+    # ---- 1. SparseRetrieval over the mesh, f32, the Dev-size stream ----
+    lap("sharded f32 SparseRetrieval")
+    split = {}
+
+    def keep_split(n, _split=index.shard_by_rows):
+        t0 = time.perf_counter()
+        base = rss_bytes()
+        split["shards"] = _split(n)
+        split["s"] = time.perf_counter() - t0
+        split["rss"] = rss_bytes() - base
+        return split["shards"]
+
+    index.shard_by_rows = keep_split      # SparseRetrieval's split, kept
+    try:
+        t0 = time.perf_counter()
+        ret = SparseRetrieval(None, index, topk=TOPK, engine="segsort",
+                              query_tile=TILE, mesh=mesh)
+        build_s = time.perf_counter() - t0
+    finally:
+        del index.shard_by_rows
+    eng = ret._seg
+    check(isinstance(eng, ss.ShardedSegsortEngine)
+          and len(eng.shards) == MESH_SHARDS
+          and all(e.device == dev and e.fetch == "dma" for e in eng.shards),
+          f"SparseRetrieval over {mesh.devices} built "
+          f"{type(eng).__name__}")
+    card_bytes = sum(e.rows_flat.nbytes + e.valbits_flat.nbytes
+                     + e.offsets.nbytes for e in eng.shards)
+    log(f"sharded f32: {MESH_SHARDS} shards on {dev} of "
+        f"{[e.n_docs for e in eng.shards]} docs, "
+        f"{[int(e._host_offsets[-1]) for e in eng.shards]} postings; "
+        f"shard_by_rows {split['s']:.1f} s, host memory +"
+        f"{split['rss'] / 1e9:.2f} GB; SparseRetrieval built in "
+        f"{build_s:.1f} s; on the card {card_bytes / 1e9:.3f} GB against "
+        f"the single engine's {refs['f32_bytes'] / 1e9:.3f} GB "
+        f"({100 * (card_bytes / refs['f32_bytes'] - 1):+.2f}%); card "
+        f"{card_s}")
+    cuda_lib.reset_launches()
+    _, st = retrieve(ret, sparse_batches(qt, qv, ids), return_run=False,
+                     write_run=False)
+    paths["sharded f32"] = dict(cuda_lib.LAUNCHES)
+    log_stats(f"sharded f32, {MESH_SHARDS} shards, {DEV_QUERIES} queries",
+              st, card_s)
+    log(f"sharded f32 steady_qps {st['steady_qps']} against the single "
+        f"engine's {refs['f32_qps']} ("
+        f"{st['steady_qps'] / refs['f32_qps']:.3f}x); card {card_s}")
+    got = stream_arrays(eng, qt, qv)
+    same_topk(got, refs["f32"], "sharded f32 vs the single engine")
+    run_m, _ = retrieve(ret, sparse_batches(qt[fin], qv[fin], ids[fin]))
+    same_run(run_m, refs["run_fin"], ids[fin], 0.0,
+             "sharded f32 run vs the single engine's")
+    log(f"sharded f32 == phase 5's single engine over all {DEV_QUERIES} "
+        f"queries (scores bit-equal, ids equal above each boundary score) "
+        f"and the last {RUN_Q} queries' run (tie-equal, rtol 0)")
+
+    # ---- 2. one tile against the plain kernels, each shard ----
+    lap("one tile against the plain versions")
+    tile = (qt[:TILE], qv[:TILE])
+    cuda_lib.reset_launches()
+    k_s, k_r = eng.finalize(eng.retrieve_tile_async(None, TOPK,
+                                                    sparsified=tile))
+    tile_counts = dict(cuda_lib.LAUNCHES)
+    check(all(tile_counts[k_] == MESH_SHARDS
+              for k_ in ("fetch_f32", "segsum", "topm")),
+          f"one sharded tile launched {tile_counts}")
+    plain = plain_twin(eng)
+    p_s, p_r = plain.finalize(plain.retrieve_tile_async(None, TOPK,
+                                                        sparsified=tile))
+    check(sum(cuda_lib.LAUNCHES.values()) == sum(tile_counts.values()),
+          "the plain twin launched a kernel")
+    same_topk((k_r, k_s), (p_r, p_s),
+                    "sharded kernels vs the plain versions")
+    log(f"one tile: each of the {MESH_SHARDS} shards launched B1, B4 and B5 "
+        f"once ({tile_counts}); == the plain-ops sharded engine (scores "
+        f"bit-equal)")
+    del plain
+
+    # ---- 3. served: pre-encoded requests through the broker ----
+    lap("served")
+    reqs = [(qt[i][:L0_Q], qv[i][:L0_Q]) for i in range(MESH_SERVED)]
+    backend = SparseTileBackend(eng, None, N_DOCS, width=TILE,
+                                t_budget=T_BUDGET, topk=TOPK)
+    check(backend.request_cost(reqs[0]) == 0, "the sharded engine has a "
+          "cost model")
+    server = RetrievalServer(backend)
+    server.warmup(reqs[:TILE], passes=1)
+    cuda_lib.reset_launches()
+    with server:
+        res, wall = serve_requests(server, reqs)
+    paths["served sharded"] = dict(cuda_lib.LAUNCHES)
+    srows = np.array([r[0] for r in res], np.int64)
+    sscores = np.array([r[1] for r in res], np.float32)
+    same_topk((srows, sscores), (refs["f32"][0][:MESH_SERVED],
+                                       refs["f32"][1][:MESH_SERVED]),
+                    "served sharded vs the single engine")
+    log(f"served sharded: {MESH_SERVED} pre-encoded requests in "
+        f"{wall:.3f} s ({MESH_SERVED / wall:.1f} req/s) == the single "
+        f"engine (scores bit-equal); stats {server.stats()}; card {card_s}")
+    del server, backend
+
+    # ---- 4. q8 and bf16 from the same split ----
+    lap("q8 and bf16")
+    for vd in ("q8", "bf16"):
+        t0 = time.perf_counter()
+        e2 = ss.ShardedSegsortEngine(split["shards"], mesh.devices,
+                                     topk=TOPK, val_dtype=vd)
+        up_s = time.perf_counter() - t0
+        stream_arrays(e2, qt[:TILE], qv[:TILE])          # warm
+        cuda_lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = stream_arrays(e2, qt[:MESH_Q], qv[:MESH_Q])
+        wall = time.perf_counter() - t0
+        paths[f"sharded {vd}"] = dict(cuda_lib.LAUNCHES)
+        # q8 folds 1/255 scales into the weights, so a doc's sum rounds by
+        # its order, which the slab's unstable sort sets (as in the
+        # reference): tie-equal at phase 5's q8 tolerance
+        rtol = 2e-5 if vd == "q8" else 0.0
+        same_topk(got, refs[vd], f"sharded {vd} vs the single engine", rtol)
+        bit = np.array_equal(got[1], refs[vd][1])
+        nbytes = sum(e.rows_flat.nbytes + (0 if e.valbits_flat is None
+                                           else e.valbits_flat.nbytes)
+                     for e in e2.shards)
+        log(f"sharded {vd}: built from the split in {up_s:.1f} s "
+            f"({nbytes / 1e9:.3f} GB on the card); {MESH_Q} queries in "
+            f"{wall:.3f} s ({MESH_Q / wall:.1f} QPS, engine tiles); == the "
+            f"single {vd} engine (tie-equal, rtol {rtol}; scores "
+            f"{'' if bit else 'not '}bit-equal); card {card_s}")
+        del e2
+        free()
+    del split
+
+    # ---- 5. the sharded doc-major scan on phase 5's texts ----
+    lap("the sharded xla scan")
+    loader, run_xla, text_ids = refs["texts"]
+    del ret, eng
+    free()
+    t0 = time.perf_counter()
+    xs = SparseRetrieval(model, index, topk=TOPK, engine="xla",
+                         query_tile=TILE, mesh=mesh)
+    xs_build = time.perf_counter() - t0
+    check(len(xs.terms) == MESH_SHARDS, "the xla engine did not shard")
+    run_xs, st = retrieve(xs, loader)
+    same_run(run_xs, run_xla, text_ids, 1e-6, "sharded xla vs xla")
+    log_stats(f"sharded xla, {N_TEXTS} texts (arrays built in "
+              f"{xs_build:.1f} s, {[tuple(t.shape) for t in xs.terms]})",
+              st, card_s)
+    log(f"sharded xla == phase 5's unsharded xla on the {N_TEXTS} texts "
+        f"(tie-equal, rtol 1e-6)")
+    del xs
+    free()
+
+    # ---- 6. eval_sparse --use_mesh on one card ----
+    lap("eval_sparse --use_mesh")
+    reps_path, cut_dir, one_pass = refs["cli"]
+    out = os.path.join(tmp, "use_mesh")
+    t0 = time.perf_counter()
+    eval_sparse.main(["--task_name", "retrieval", "--query_reps_path",
+                      reps_path, "--index_dir", cut_dir, "--out_dir", out,
+                      "--top_k", str(TOPK), "--query_tile", str(TILE),
+                      "--device", str(dev), "--use_mesh"])
+    cli_s = time.perf_counter() - t0
+    runs = []
+    for d in (out, one_pass):
+        with open(os.path.join(d, "run.json")) as f:
+            runs.append(json.load(f))
+    check(runs[0] == runs[1], "eval_sparse --use_mesh's run.json differs "
+          "from the run without it")
+    log(f"eval_sparse --use_mesh over {torch.cuda.device_count()} card(s): "
+        f"the one-device path, run.json == the run without the flag "
+        f"({cli_s:.1f} s)")
+    log(f"phase 10a (sharded sparse): {time.perf_counter() - t_phase:.1f} "
+        f"s, peak card memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB allocated; "
+        f"card {card_s}")
     return paths
 
 
@@ -1962,6 +2254,127 @@ def host_load(dev, seed: int, q, head: dict, bf16_bytes: int,
     return max(peaks)
 
 
+MESH_DENSE_Q = 1_024
+MESH_INT8_CHUNKS = 8          # the int8 cut: 2,097,152 rows
+MESH_FILE_ROWS = 65_536       # MeshDenseRetriever's cut, from files
+
+
+def mesh_dense_phase(dev, idx, codes, q_all, card_s: str, tmp: str) -> None:
+    """Phase 10b, inside phase 6 while its int8 layout exists: the bf16
+    store as MESH_SHARDS row-range views (chunk lists, no copy) through
+    make_sharded_dense_search against the direct search over the whole
+    store; the int8 codes on a cut, bit-equal; MeshDenseRetriever over
+    MESH_FILE_ROWS rows written as embedding files against
+    LocalDenseRetriever over the same files."""
+    from scaling_retriever_tpu_torch.evaluation.eval_dense import (
+        LocalDenseRetriever, MeshDenseRetriever)
+    from scaling_retriever_tpu_torch.index import dense_index as di
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+    from scaling_retriever_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[dev] * MESH_SHARDS)
+
+    def shards_of(chunks, n_chunks):
+        """Row-range views of the first ``n_chunks`` chunks, one chunk list
+        per shard, and each shard's global row ids (-1 past N_DOCS)."""
+        docs, ids = [], []
+        for part in np.array_split(np.arange(n_chunks), MESH_SHARDS):
+            docs.append([chunks[c] for c in part])
+            r = torch.arange(int(part[0]) * DENSE_CHUNK,
+                             (int(part[-1]) + 1) * DENSE_CHUNK, device=dev)
+            ids.append(torch.where(r < N_DOCS, r, -1))
+        return docs, ids
+
+    def tiles(fn, n):
+        """fn over the DENSE_TILE-query tiles of n queries → (rows,
+        scores) host arrays, and the seconds it took."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [fn(slice(s0, min(s0 + DENSE_TILE, n)))
+               for s0 in range(0, n, DENSE_TILE)]
+        rows = np.concatenate([r.cpu().numpy() for _, r in out])
+        scores = np.concatenate([s.cpu().numpy() for s, _ in out])
+        return (rows.astype(np.int64), scores), time.perf_counter() - t0
+
+    # bf16: the whole store over four shards against the direct search
+    store = idx._store
+    docs, row_ids = shards_of(store, len(store))
+    check(all(c.data_ptr() == store[i].data_ptr() for i, c in enumerate(
+        itertools.chain(*docs))), "a shard copied the store")
+    q = q_all[:MESH_DENSE_Q].to(torch.bfloat16)
+    fn = di.make_sharded_dense_search(mesh, "data", k=TOPK,
+                                      chunk=DENSE_CHUNK)
+    cuda_lib.reset_launches()
+    got, sh_s = tiles(lambda t: fn(docs, row_ids, q[t]), MESH_DENSE_Q)
+    check(not any(cuda_lib.LAUNCHES.values()),
+          f"the sharded dense search launched {cuda_lib.LAUNCHES}")
+    want, di_s = tiles(lambda t: di._search_chunked(store, q[t], TOPK,
+                                                    DENSE_CHUNK),
+                       MESH_DENSE_Q)
+    check(not (got[0] >= N_DOCS).any(), "a padding row in the top-k")
+    same_topk(got, want, "dense sharded vs direct", rtol=1e-5)
+    bit = np.array_equal(got[1], want[1])
+    rel = float(np.max(np.abs(got[1] - want[1])
+                       / np.maximum(np.abs(want[1]), 1e-30)))
+    log(f"dense sharded, bf16: the store as {MESH_SHARDS} views of "
+        f"{[len(d) for d in docs]} chunks, {MESH_DENSE_Q} queries, k {TOPK}:"
+        f" {sh_s:.3f} s against {di_s:.3f} s for the direct search over the "
+        f"whole store; ids tie-equal, scores "
+        f"{'bit-equal' if bit else f'within {rel:.2e} relative'} (limit "
+        f"1e-5); no kernel launched (B5's dense site is not on this path); "
+        f"card {card_s}")
+
+    # int8 on a cut: codes exact, so bit-equal
+    qc, qs = di._quantize_queries_int8(q_all[:MESH_DENSE_Q].float())
+    scales = idx._layout[2]
+    cdocs, cids = shards_of(codes, MESH_INT8_CHUNKS)
+    cscales, _ = shards_of(scales, MESH_INT8_CHUNKS)
+    fn8 = di.make_sharded_dense_search(mesh, "data", k=TOPK,
+                                       chunk=DENSE_CHUNK, quantize="int8")
+    got8, sh8_s = tiles(lambda t: fn8(cdocs, cids, cscales, qc[t], qs[t]),
+                        MESH_DENSE_Q)
+    want8, di8_s = tiles(lambda t: di._search_chunked(
+        codes[:MESH_INT8_CHUNKS], qc[t], TOPK, DENSE_CHUNK,
+        doc_scales=scales[:MESH_INT8_CHUNKS], q_scale=qs[t]), MESH_DENSE_Q)
+    same_topk(got8, want8, "dense sharded int8 vs direct")
+    log(f"dense sharded, int8 on a cut of {MESH_INT8_CHUNKS * DENSE_CHUNK} "
+        f"rows: {sh8_s:.3f} s against {di8_s:.3f} s direct; == the direct "
+        f"search (scores bit-equal, ids tie-equal); card {card_s}")
+
+    # MeshDenseRetriever from embedding files against LocalDenseRetriever
+    fdir = os.path.join(tmp, "mesh_embs")
+    os.makedirs(fdir)
+    rows = store[0][:MESH_FILE_ROWS].float().cpu().numpy()
+    half = MESH_FILE_ROWS // 2
+    for c in range(2):
+        np.save(os.path.join(fdir, f"embs_0_{c}.npy"),
+                rows[c * half:(c + 1) * half])
+        np.save(os.path.join(fdir, f"ids_0_{c}.npy"), np.array(
+            [f"d{i}" for i in range(c * half, (c + 1) * half)], dtype=object))
+    with open(os.path.join(fdir, "plan.json"), "w") as f:
+        json.dump({"nranks": 1, "num_chunks": 2}, f)
+    qf = q_all[:DENSE_TILE].float().cpu().numpy()
+    res = {}
+    for name, r in (("mesh", MeshDenseRetriever(DENSE_DIM, mesh)),
+                    ("local", LocalDenseRetriever(DENSE_DIM, device=dev))):
+        t0 = time.perf_counter()
+        r.index_encoded_data(fdir)
+        res[name] = result_arrays(r.get_top_docs(qf, TOPK))
+        res[name + "_s"] = time.perf_counter() - t0
+        del r
+    same_topk(res["mesh"], res["local"],
+              "MeshDenseRetriever vs LocalDenseRetriever", rtol=1e-5)
+    log(f"MeshDenseRetriever over {MESH_FILE_ROWS} rows in 2 embedding "
+        f"files, {MESH_SHARDS} shards of one card, {DENSE_TILE} queries: "
+        f"{res['mesh_s']:.2f} s (load + search) against "
+        f"LocalDenseRetriever's {res['local_s']:.2f} s; tie-equal (rtol "
+        f"1e-5)")
+    shutil.rmtree(fdir)
+    log(f"phase 10b (dense sharded): {time.perf_counter() - t_phase:.1f} s;"
+        f" card {card_s}")
+
+
 def dense_phase(dev, model, seed: int, card_s: str, tmp: str):
     """Phase 6: the dense path at 8,841,823 x 2048 (bf16, then int8),
     served in process, over HTTP and through the server CLI, and
@@ -2113,6 +2526,10 @@ def dense_phase(dev, model, seed: int, card_s: str, tmp: str):
         # the first tile's answers, for the host-array load in step 9
         head = {"bf16": (blocked[0][:DENSE_TILE], blocked[1][:DENSE_TILE]),
                 "int8": (got8[0][:DENSE_TILE], got8[1][:DENSE_TILE])}
+
+        # ---- 5b. the doc-sharded search (phase 10b) ----
+        lap("phase 10b, the doc-sharded search")
+        mesh_dense_phase(dev, idx, codes, q_all, card_s, tmp)
         idx.quantize = None
         del codes, got8
         idx._materialize()
@@ -2810,6 +3227,65 @@ def step_report(label, ms, flops, tokens, peak, card_s) -> float:
     return med
 
 
+MESH_TRAIN_STEPS = 2
+# name: (data, model, entries of the card, fsdp)
+TRAIN_MESHES = {"one entry": (1, 1, 1, False),
+                "data 4, fsdp": (4, 1, 4, True),
+                "data 2, model 2": (2, 2, 4, False)}
+
+
+def mesh_training(dev, enc, base_cfg, base_args, lc, batches, seed: int,
+                  card_s: str, tmp: str) -> None:
+    """Phase 10c: MESH_TRAIN_STEPS optimizer steps of the Trainer at the
+    recipe's micro batch (LoRA dropout on) on each of TRAIN_MESHES over
+    one card, from the same factors: the losses bit-equal across meshes
+    (one global step on one card); the share of parameter bytes whose
+    spec shards."""
+    from scaling_retriever_tpu_torch.models.encoder import LlamaBiSparse
+    from scaling_retriever_tpu_torch.models.lora import init_lora_params
+    from scaling_retriever_tpu_torch.parallel import partitioning
+    from scaling_retriever_tpu_torch.parallel.mesh import make_mesh
+    from scaling_retriever_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    losses, notes = {}, []
+    for name, (data, model, n, fsdp) in TRAIN_MESHES.items():
+        g = torch.Generator(device=dev).manual_seed(seed + 82)
+        e = LlamaBiSparse(enc.params, base_cfg,
+                          init_lora_params(base_cfg, lc, g, device=dev), lc)
+        out = os.path.join(tmp, "mesh_" + name.replace(" ", "_")
+                           .replace(",", ""))
+        args = dataclasses.replace(
+            base_args, output_dir=out, lora_dropout=lc.lora_dropout,
+            gradient_accumulation_steps=1, max_steps=MESH_TRAIN_STEPS,
+            save_steps=None, resume_from_checkpoint=None, fsdp=fsdp,
+            logging_steps=1)
+        tr = Trainer(e, args, list(batches[:MESH_TRAIN_STEPS]),
+                     mesh=make_mesh(data, model, devices=[dev] * n))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        losses[name] = [x["loss"] for x in read_log(out)]
+        audit = partitioning.shard_audit(enc.params, tr.param_shardings)
+        share = audit["param_bytes_sharded"] / audit["param_bytes_total"]
+        notes.append(f"{name}: losses {losses[name]}, {secs:.2f} s, "
+                     f"{100 * share:.2f}% of {audit['param_bytes_total']} "
+                     f"parameter bytes under a sharding spec")
+        del tr, e
+        free()
+    first = next(iter(losses.values()))
+    check(len(first) == MESH_TRAIN_STEPS
+          and all(v == first for v in losses.values()),
+          f"the Trainer's losses differ across meshes: {losses}")
+    log(f"phase 10c, the Trainer at {TRAIN_Q} x (1 + {TRAIN_NEGS}), "
+        f"{TRAIN_QLEN}/{TRAIN_DLEN} tokens, LoRA dropout {lc.lora_dropout}, "
+        f"{MESH_TRAIN_STEPS} steps on meshes of one card: "
+        f"{'; '.join(notes)}; bit-equal across meshes; "
+        f"{time.perf_counter() - t_phase:.1f} s; card {card_s}")
+
+
 def training_phase(dev, ckpt: str, seed: int, card_s: str, tmp: str) -> dict:
     """Phase 8: training at Llama-3.2-1B width from the checkpoint at
     ``ckpt``: sparse NCE timed, profiled and fitting one batch; remat full
@@ -3004,6 +3480,13 @@ def training_phase(dev, ckpt: str, seed: int, card_s: str, tmp: str) -> dict:
         f"for step 3: {len(a)} factors bit-equal to the uninterrupted run's "
         f"(dropout 0)")
     del straight, cut, resumed, a, b
+    free()
+
+    # ---- 3b. the Trainer over meshes of the card (phase 10c) ----
+    lap("phase 10c, the Trainer over meshes")
+    mesh_training(dev, enc, base_cfg, trainer.args,
+                  dataclasses.replace(lc0, lora_dropout=0.1), batches, seed,
+                  card_s, tmp)
     free()
 
     # ---- 4. the trained adapter served back through B1, B4 and B5 ----
@@ -3757,16 +4240,24 @@ def run(dev, seed: int, card_s: str) -> list:
     del rows, valbits, pairs, packed
     free()
     with tempfile.TemporaryDirectory() as tmp:
-        offline = offline_phase(dev, model, index, cindex, cfg, seed, card_s,
-                                tmp)
+        offline, refs = offline_phase(dev, model, index, cindex, cfg, seed,
+                                      card_s, tmp)
         for path, counts in offline.items():
             log(f"launches over the {path} path: {counts}")
         paths.update(offline)
         log("phase 5: the offline path (f32, bf16, q8, text via the hot "
             "route, gather, block-max, maxscore, the CLI) through the "
             "kernels")
+        del cindex
+        sharded = mesh_sparse_phase(dev, model, index, refs, card_s, tmp)
+        for path, counts in sharded.items():
+            log(f"launches over the {path} path: {counts}")
+        paths.update(sharded)
+        log(f"phase 10a: the sharded sparse entry points ({MESH_SHARDS} "
+            f"shards of one card: f32, q8, bf16, served, xla, --use_mesh) "
+            f"== the single engines, through B1, B2, B3, B4 and B5")
         # phase 6 keeps phase 5's CLI cut on disk, not its host corpora
-        del index, cindex
+        del index, refs
         dense, entry = dense_phase(dev, model, seed, card_s, tmp)
     for path, counts in dense.items():
         log(f"launches over the {path} path: {counts}")

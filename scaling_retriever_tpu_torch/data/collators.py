@@ -204,3 +204,23 @@ class BertRerankerInferenceCollator:
                              max_length=self.max_length)
         toks = {k: np.asarray(v) for k, v in enc.items()}
         return {"qids": qids, "docids": docids, "tokenized_texts": toks}
+
+
+def tokenize_add_cls_token_id_and_padding(tokenizer, texts,
+                                          max_length: int) -> dict:
+    """Texts cut to ``max_length - 1`` tokens, the cls token appended, then
+    left-padded to a multiple of 8 (the tokenizer must pad on the left)."""
+    if tokenizer.padding_side != "left":
+        raise ValueError(f"padding_side {tokenizer.padding_side!r}: the cls "
+                         "token ends each row only under left padding")
+    enc = tokenizer(list(texts), truncation=True, padding=False,
+                    max_length=max_length - 1, return_attention_mask=False,
+                    add_special_tokens=True)
+    enc["input_ids"] = [ids + [tokenizer.cls_token_id]
+                        for ids in enc["input_ids"]]
+    padded = tokenizer.pad(enc, padding=True, pad_to_multiple_of=8,
+                           return_attention_mask=True)
+    return {
+        "input_ids": np.asarray(padded["input_ids"], np.int32),
+        "attention_mask": np.asarray(padded["attention_mask"], np.int32),
+    }

@@ -12,9 +12,11 @@ same flags plus ``--device`` (default "cuda").
 tokenizer as arguments, or load them from ``--model_name_or_path`` (plus
 ``--lora_name_or_path``; a LoRA directory loads its base model) onto
 ``--device``; the tokenizer is the checkpoint directory's, which
-``transformers`` loads. ``--use_mesh`` and ``MeshDenseRetriever`` (the
-sharded search, ROADMAP A10) are not ported yet and raise
-``NotImplementedError``.
+``transformers`` loads. ``--use_mesh`` searches with
+``MeshDenseRetriever`` (the doc-sharded search) over every device of
+``--device``'s type (``parallel.mesh.local_devices``) when there is more
+than one, and with ``LocalDenseRetriever`` otherwise, as the reference
+does on one chip.
 """
 
 from __future__ import annotations
@@ -39,10 +41,14 @@ from scaling_retriever_tpu_torch.data.prefetch import PrefetchLoader
 from scaling_retriever_tpu_torch.evaluation.metrics import (
     evaluate_beir, load_and_evaluate,
 )
-from scaling_retriever_tpu_torch.index.dense_index import DenseFlatIndexer
+from scaling_retriever_tpu_torch.index.dense_index import (
+    DenseFlatIndexer, make_sharded_dense_search,
+)
 from scaling_retriever_tpu_torch.index.indexer import (
     obtain_doc_vec_dir_files, store_embs,
 )
+from scaling_retriever_tpu_torch.parallel import mesh as mesh_lib
+from scaling_retriever_tpu_torch.utils.utils import depth2_pipeline
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,10 +87,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device for encoding and retrieval (cuda, "
                         "cuda:N or cpu)")
     return p
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def _load_model(args):
@@ -148,18 +150,104 @@ class LocalDenseRetriever:
 
 
 class MeshDenseRetriever:
-    """Doc-sharded dense retrieval over several devices."""
+    """Doc-sharded dense retrieval over a mesh: the rows split into one
+    equal range per mesh entry (padded with zero rows to ``chunk`` times
+    the entry count) and searched by ``make_sharded_dense_search``, the
+    queries in ``dtype``. The reference concatenates the files into one
+    f32 host array (72 GB at MSMARCO size) before placing it; here each
+    shard's rows go to its device in ``chunk``-row tensors of ``dtype`` as
+    the files are read, at the first search. Same shards, same results."""
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("MeshDenseRetriever (the doc-sharded search)",
-                          "A10")
+    def __init__(self, hidden_dim: int, mesh, chunk: int = 8192,
+                 query_tile: int = 256, dtype=torch.bfloat16):
+        self.hidden_dim = hidden_dim
+        self.mesh = mesh
+        self.chunk = chunk
+        self.query_tile = query_tile  # bounds the [nq, chunk] score slab
+        self.dtype = dtype
+        self.ids: list = []
+        self._files: list = []
+        self._placed = None
+
+    def index_encoded_data(self, doc_embed_dir: str) -> None:
+        emb_files, id_files = obtain_doc_vec_dir_files(doc_embed_dir)
+        for emb_f, id_f in zip(emb_files, id_files):
+            self._files.append(emb_f)
+            self.ids.extend(np.load(id_f, allow_pickle=True).tolist())
+        self._placed = None
+
+    def _place(self):
+        """(per-shard chunk lists, per-shard global row ids, -1 past the
+        last row), built from the files once."""
+        if self._placed is not None:
+            return self._placed
+        n, c = len(self.ids), self.chunk
+        per = -(-n // (c * self.mesh.size)) * c
+        shards = [[torch.zeros((c, self.hidden_dim), dtype=self.dtype,
+                               device=d) for _ in range(per // c)]
+                  for d in self.mesh.devices]
+        row = 0
+        for path in self._files:
+            vecs = np.load(path, mmap_mode="r")
+            a = 0
+            while a < vecs.shape[0]:
+                shard, within = divmod(row, per)
+                ci, off = divmod(within, c)
+                b = min(vecs.shape[0], a + c - off)
+                shards[shard][ci][off:off + b - a] = torch.from_numpy(
+                    np.array(vecs[a:b], np.float32)).to(self.dtype)
+                row += b - a
+                a = b
+        if row != n:
+            raise ValueError(f"{row} embedding rows for {n} ids")
+        row_ids = []
+        for i, d in enumerate(self.mesh.devices):
+            ids = torch.arange(i * per, (i + 1) * per, device=d)
+            row_ids.append(torch.where(ids < n, ids, -1))
+        self._placed = shards, row_ids
+        return self._placed
+
+    def get_top_docs(self, query_vectors, top_docs: int):
+        docs, row_ids = self._place()
+        fn = make_sharded_dense_search(self.mesh, "data",
+                                       k=min(top_docs, len(self.ids)),
+                                       chunk=self.chunk)
+        q = np.asarray(query_vectors, np.float32)
+        tiles = []
+
+        # dispatch tile i + 1 before reading tile i; the id mapping runs
+        # once after the pipeline
+        def _dispatch(start):
+            q_tile = q[start:start + self.query_tile]
+            n_real = q_tile.shape[0]
+            pad = (self.query_tile - n_real
+                   if q.shape[0] > self.query_tile else 0)
+            if pad:
+                q_tile = np.pad(q_tile, ((0, pad), (0, 0)))
+            qd = torch.from_numpy(np.ascontiguousarray(q_tile)).to(
+                self.mesh.device, self.dtype)
+            return fn(docs, row_ids, qd), n_real
+
+        def _drain(payload):
+            (scores, rows), n_real = payload
+            tiles.append((scores.float().cpu().numpy(), rows.cpu().numpy(),
+                          n_real))
+
+        depth2_pipeline(range(0, q.shape[0], self.query_tile), _dispatch,
+                        _drain)
+        id_map = np.asarray(self.ids, dtype=object)
+        out = []
+        for scores, rows, n_real in tiles:
+            for qi in range(n_real):
+                valid = rows[qi] >= 0
+                out.append((id_map[rows[qi][valid]].tolist(),
+                             scores[qi][valid].tolist()))
+        return out
 
 
 def dense_retrieval(args, model=None, tokenizer=None) -> None:
     """Encode the queries, rank them over ``--doc_embed_dir`` and write
     ``run.json`` to ``--out_dir``."""
-    if args.use_mesh:
-        raise _not_ported("--use_mesh (the doc-sharded search)", "A10")
     tokenizer = tokenizer if tokenizer is not None else _tokenizer(args)
     if args.is_beir and args.beir_dataset:
         _, queries, _ = load_beir_dataset(_beir_path(args))
@@ -173,9 +261,15 @@ def dense_retrieval(args, model=None, tokenizer=None) -> None:
     collator = LlamaDenseCollectionCollator(tokenizer, args.query_max_length)
     loader = DataLoader(q_collection, args.eval_batch_size, collator)
 
-    retriever = LocalDenseRetriever(model.hidden_size,
-                                    quantize=args.quantize or None,
-                                    device=args.device)
+    devices = (mesh_lib.local_devices(args.device) if args.use_mesh
+               else [args.device])
+    if len(devices) > 1:
+        retriever = MeshDenseRetriever(model.hidden_size,
+                                       mesh_lib.make_mesh(devices=devices))
+    else:
+        retriever = LocalDenseRetriever(model.hidden_size,
+                                        quantize=args.quantize or None,
+                                        device=args.device)
     retriever.index_encoded_data(args.doc_embed_dir)
 
     qids, reps = [], []

@@ -24,8 +24,10 @@ and per-pass stats under "passes"). ``evaluate_msmarco`` writes
 ``out_dir/run.json`` and a local BEIR dataset's qrels. The text tasks need
 a tokenizer in the checkpoint directory, which ``transformers`` loads.
 
-Not ported yet, and raising ``NotImplementedError``: ``--use_mesh`` (the
-sharded engine, ROADMAP A10).
+``--use_mesh`` shards the index by doc ranges over every device of
+``--device``'s type (``parallel.mesh.local_devices``) when there is more
+than one; on one device it runs the one-device path, as the reference
+does on one chip.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from scaling_retriever_tpu_torch.evaluation.metrics import (
 )
 from scaling_retriever_tpu_torch.index.indexer import SparseIndexer
 from scaling_retriever_tpu_torch.index.sparse_retrieval import SparseRetrieval
+from scaling_retriever_tpu_torch.parallel import mesh as mesh_lib
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,10 +111,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device of the encoder and retrieval (cuda, "
                         "cuda:N or cpu)")
     return p
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def _load_model(args):
@@ -223,17 +222,20 @@ def sparse_retrieval(args, model=None, tokenizer=None) -> None:
     """Rank the queries (pre-encoded, or text through ``model``, which
     defaults to loading ``--model_name_or_path``) over ``--index_dir``
     into ``--out_dir``."""
-    if args.use_mesh:
-        raise _not_ported("--use_mesh (the sharded engine)", "A10")
     loader = _query_loader(args, tokenizer=tokenizer)
     if args.query_reps_path:
         model = None
     elif model is None:
         model = _load_model(args)
+    mesh = None
+    if args.use_mesh:
+        devices = mesh_lib.local_devices(args.device)
+        if len(devices) > 1:
+            mesh = mesh_lib.make_mesh(devices=devices)
     os.makedirs(args.out_dir, exist_ok=True)
     retriever = SparseRetrieval(model, args.index_dir, out_dir=args.out_dir,
                                 topk=args.top_k, engine=args.engine,
-                                query_tile=args.query_tile,
+                                mesh=mesh, query_tile=args.query_tile,
                                 index_val_dtype=args.index_val_dtype,
                                 device=args.device)
     if args.passes <= 1:

@@ -31,8 +31,9 @@ holds the layout only and the host the f32 store. ``serialize`` writes the
 f32 widening of the store, so an ``index_srt.npz`` and
 ``index_meta_srt.json`` written by either package load in the other.
 
-``make_sharded_dense_search`` (the doc-sharded mesh search) is not ported
-yet (ROADMAP A10) and raises.
+``make_sharded_dense_search`` is the doc-sharded search over a mesh: the
+direct search per shard, the shards' top-k merged on the mesh's first
+device.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from scaling_retriever_tpu_torch.ops.sparse_scoring import merge_shards
 from scaling_retriever_tpu_torch.ops.topm import block_topm
 from scaling_retriever_tpu_torch.utils.utils import (
     depth2_pipeline, force_materialized,
@@ -197,8 +199,49 @@ def _search_chunked(docs, queries: torch.Tensor, k: int,
 
 def make_sharded_dense_search(mesh, axis: str, k: int, chunk: int = 262144,
                               quantize: Optional[str] = None):
-    raise NotImplementedError("the doc-sharded dense search is not ported "
-                              "yet (ROADMAP A10)")
+    """Doc-sharded exact IP search over ``mesh``: each shard runs the
+    direct ``_search_chunked`` over its rows on its device, maps its rows
+    to global ones (rows < 0 stay -1), and the shards' top-k merge on
+    ``mesh.device`` (``merge_shards``: stable, ties to the lower shard).
+
+    Returns fn(docs_shards, row_ids_shards, queries) → (scores [nq, k],
+    global rows [nq, k]); with ``quantize="int8"`` fn(code_shards,
+    row_ids_shards, scale_shards, queries, q_scale), queries being the
+    int8 query codes. Where the reference takes arrays sharded over
+    ``axis``, this takes one entry per mesh entry, in mesh order: a shard's
+    docs are [N_s, D] (N_s a multiple of chunk; pad rows zero, their row
+    ids -1) or a list of its [chunk, D] chunks, on its device."""
+    del axis                                 # the shards are the lists
+
+    def _merge(scores, rows, row_ids):
+        out_s, out_r = [], []
+        for s, r, ids in zip(scores, rows, row_ids):
+            out_s.append(s)
+            out_r.append(torch.where(r >= 0, ids[r.clamp(min=0).long()],
+                                     -1))
+        return merge_shards(out_s, out_r, k, mesh.device)
+
+    def _device(docs):
+        return (docs if isinstance(docs, torch.Tensor) else docs[0]).device
+
+    if quantize == "int8":
+        def fn8(code_shards, row_id_shards, scale_shards, queries, q_scale):
+            res = [_search_chunked(docs, queries.to(_device(docs)), k=k,
+                                   chunk=chunk, doc_scales=scales,
+                                   q_scale=q_scale.to(_device(docs)))
+                   for docs, scales in zip(code_shards, scale_shards)]
+            return _merge([s for s, _ in res], [r for _, r in res],
+                          row_id_shards)
+
+        return fn8
+
+    def fn(doc_shards, row_id_shards, queries):
+        res = [_search_chunked(docs, queries.to(_device(docs)), k=k,
+                               chunk=chunk) for docs in doc_shards]
+        return _merge([s for s, _ in res], [r for _, r in res],
+                      row_id_shards)
+
+    return fn
 
 
 class DenseIndexer:

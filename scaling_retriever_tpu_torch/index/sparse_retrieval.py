@@ -18,8 +18,12 @@ the reference's ``run.json`` ({qid: {doc_id: score}}) and
   * "cpp"      — the host C++ CSR engine (index/cpp_engine.py), all
                  queries in one call.
 
-``mesh=`` (the sharded engines) waits for ROADMAP A10 and raises
-``NotImplementedError``.
+``mesh=`` (a ``parallel.mesh.Mesh`` of more than one entry) shards the
+corpus by doc ranges over its entries: "segsort" runs a
+``ShardedSegsortEngine``, "xla" the doc-sharded scan of
+``make_sharded_retrieve`` over rows padded to ``block`` times the entry
+count; the other engines ignore it, as in the reference. Queries are then
+prepared on the mesh's first device.
 
 The driver keeps the reference's schedule: the stream is sorted by
 estimated cost (matched postings), packed into (width, job bucket) tiles,
@@ -48,7 +52,7 @@ from scaling_retriever_tpu_torch.index.inverted_index import SparseIndex
 from scaling_retriever_tpu_torch.ops.segsort_scoring import \
     sparsify_reps_device
 from scaling_retriever_tpu_torch.ops.sparse_scoring import (
-    pad_docs, retrieve_doc_major,
+    make_sharded_retrieve, pad_docs, retrieve_doc_major,
 )
 from scaling_retriever_tpu_torch.utils.profiling import (
     profile_span, timings,
@@ -68,10 +72,11 @@ def resolve_engine(engine: str, backend=None) -> str:
     return "xla" if backend == "cpu" else "segsort"
 
 
-def _doc_major_on(index: SparseIndex, device, block: int, value_dtype):
-    """The doc-major arrays on ``device``, rows padded to a block multiple,
-    values in ``value_dtype``."""
-    n_pad = -(-index.nb_docs() // block) * block
+def _doc_major_on(index: SparseIndex, device, block: int, value_dtype,
+                  n_shards: int = 1):
+    """The doc-major arrays on ``device``, rows padded to a multiple of
+    ``block * n_shards``, values in ``value_dtype``."""
+    n_pad = -(-index.nb_docs() // (block * n_shards)) * block * n_shards
     terms, vals = index.to_doc_major(device=device, n_rows=n_pad)
     vals = vals.to(value_dtype)
     return pad_docs(terms, vals, block)
@@ -85,12 +90,11 @@ class SparseRetrieval:
                  value_dtype=torch.bfloat16,
                  hot_postings: Optional[int] = None,
                  index_val_dtype: str = "f32", device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded retrieval is not ported yet (ROADMAP A10)")
         self.model = model
         t_setup = time.perf_counter()
-        self.device = torch.device(device)
+        self.device = mesh.device if mesh is not None else torch.device(
+            device)
+        sharded = mesh is not None and mesh.size > 1
         self.index = SparseIndex.load(index) if isinstance(index, str) \
             else index
         self.out_dir = out_dir
@@ -118,12 +122,18 @@ class SparseRetrieval:
         self._seen_variants: set = set()
 
         if engine == "segsort":
-            from scaling_retriever_tpu_torch.ops.segsort_scoring import \
-                SegsortEngine
+            from scaling_retriever_tpu_torch.ops.segsort_scoring import (
+                SegsortEngine, ShardedSegsortEngine,
+            )
 
-            self._seg = SegsortEngine(self.index, topk=topk,
-                                      val_dtype=index_val_dtype,
-                                      device=self.device, fetch="auto")
+            if sharded:
+                self._seg = ShardedSegsortEngine(
+                    self.index, mesh.devices, topk=topk,
+                    val_dtype=index_val_dtype, fetch="auto")
+            else:
+                self._seg = SegsortEngine(self.index, topk=topk,
+                                          val_dtype=index_val_dtype,
+                                          device=self.device, fetch="auto")
             self.n_docs = self.index.nb_docs()
         elif engine == "maxscore":
             from scaling_retriever_tpu_torch.ops.maxscore import \
@@ -141,9 +151,25 @@ class SparseRetrieval:
             self.n_docs = self.index.nb_docs()
         elif engine == "xla":
             self.n_docs = self.index.nb_docs()
-            self.terms, self.vals = _doc_major_on(self.index, self.device,
-                                                  block, value_dtype)
-            force_materialized(self.terms, self.vals)
+            self.terms, self.vals = _doc_major_on(
+                self.index, self.device, block, value_dtype,
+                mesh.size if sharded else 1)
+            self._sharded_fn = None
+            if sharded:
+                # equal doc ranges, each a view on its own entry's device
+                per = self.terms.shape[0] // mesh.size
+                self.terms = [self.terms[i * per:(i + 1) * per].to(d)
+                              for i, d in enumerate(mesh.devices)]
+                self.vals = [self.vals[i * per:(i + 1) * per].to(d)
+                             for i, d in enumerate(mesh.devices)]
+                self.row_ids = [torch.arange(i * per, (i + 1) * per,
+                                             device=d)
+                                for i, d in enumerate(mesh.devices)]
+                self._sharded_fn = make_sharded_retrieve(
+                    mesh, data_axis, k=topk, block=block)
+                force_materialized(*self.terms, *self.vals, *self.row_ids)
+            else:
+                force_materialized(self.terms, self.vals)
         elif engine == "cpp":
             from scaling_retriever_tpu_torch.index.cpp_engine import \
                 CppSparseEngine
@@ -413,8 +439,15 @@ class SparseRetrieval:
                 if pad:
                     q_tile = np.pad(q_tile, ((0, pad), (0, 0)))
                 with profile_span("doc_major_retrieve_tile"):
-                    scores, rows = self._doc_major_tile(self.terms, self.vals,
-                                                        q_tile, topk)
+                    if self._sharded_fn is not None:
+                        q_t = torch.from_numpy(np.ascontiguousarray(
+                            q_tile.T)).to(self.device)
+                        s, r = self._sharded_fn(self.terms, self.vals,
+                                                self.row_ids, q_t)
+                        scores, rows = s.cpu().numpy(), r.cpu().numpy()
+                    else:
+                        scores, rows = self._doc_major_tile(
+                            self.terms, self.vals, q_tile, topk)
                 n_real = min(tile, nq - start)
                 acc.add_tile(np.arange(start, start + n_real),
                              rows[:n_real], scores[:n_real])

@@ -28,6 +28,10 @@ failed (the slab stays alive until then).
 PyTorch versions (``PLAIN``) for the functions that take it; the plain path
 exists to hold the kernels against on the card. On CPU tensors the kernel
 wrappers take the plain versions themselves.
+
+``ShardedSegsortEngine`` runs one engine per doc-range shard of the index
+over a list of devices (one card may hold several shards) and merges the
+shards' top-k on the host.
 """
 
 from __future__ import annotations
@@ -523,7 +527,9 @@ class SegsortEngine:
     scales of ``pack_postings_q8``. ``index`` is then ignored.
 
     ``ops`` selects the kernels (default) or their plain versions for every
-    tile this engine runs.
+    tile this engine runs. ``sync=False`` returns with the upload still
+    queued (``sync_upload`` waits for it), so that several engines' uploads
+    overlap.
 
     ``fetch`` picks the posting fetch: ``"dma"`` (the job-table fetch over
     the kernels above), ``"gather"`` (``segsort_retrieve``: one row gather
@@ -538,7 +544,8 @@ class SegsortEngine:
     def __init__(self, index=None, topk: int = 1000,
                  query_terms_budget: int = 64, val_dtype: str = "f32",
                  device="cuda", device_csr=None, ops: Ops = KERNELS,
-                 fetch: str = "dma", min_budget: int = 1 << 17):
+                 fetch: str = "dma", min_budget: int = 1 << 17,
+                 sync: bool = True):
         if val_dtype not in ("f32", "bf16", "q8"):
             raise ValueError(f"val_dtype {val_dtype!r}: f32, bf16 or q8")
         if fetch not in ("auto", "dma", "gather"):
@@ -607,7 +614,8 @@ class SegsortEngine:
         self._host_offsets = host_offsets
         self._host_lens = np.diff(host_offsets)
         self.offsets = torch.from_numpy(host_offsets).to(self.device)
-        self.sync_upload()
+        if sync:
+            self.sync_upload()
 
     def sync_upload(self) -> None:
         """Block until the index buffers are on the device."""
@@ -712,3 +720,81 @@ class SegsortEngine:
         buf = _resolve_handoff(buf, k, fallback).cpu().numpy()
         return buf[:, :k].copy().view(np.float32), buf[:, k:2 * k], \
             buf[:, 2 * k]
+
+
+class ShardedSegsortEngine:
+    """Doc-sharded segsort over a list of devices (repeats allowed).
+
+    ``SparseIndex.shard_by_rows`` splits the corpus into doc-range shards
+    with local rows, each posting list in its order; each shard gets its
+    own ``SegsortEngine`` on its device (full [V+1] offsets, so query term
+    ids are valid on every shard). A tile runs on every shard and the
+    per-shard top-k lists merge on the host. ``ops`` and ``fetch`` go to
+    every shard; a shard whose kernel fails raises. ``index`` may also be
+    the list of its doc-range shards, one per device in row order (what
+    ``shard_by_rows`` returns), to build several layouts from one split.
+    """
+
+    def __init__(self, index, devices, topk: int = 1000,
+                 query_terms_budget: int = 64, min_budget: int = 1 << 17,
+                 val_dtype: str = "f32", ops: Ops = KERNELS,
+                 fetch: str = "dma"):
+        self.devices = [torch.device(d) for d in devices]
+        self.topk = topk
+        shards = (list(index) if isinstance(index, (list, tuple))
+                  else index.shard_by_rows(len(self.devices)))
+        if len(shards) != len(self.devices):
+            raise ValueError(f"{len(shards)} shards for "
+                             f"{len(self.devices)} devices")
+        sizes = [s.nb_docs() for s in shards]
+        self.row_offsets = np.cumsum([0] + sizes[:-1]).tolist()
+        self.shards = [SegsortEngine(
+            shard, topk=topk, query_terms_budget=query_terms_budget,
+            val_dtype=val_dtype, device=dev, ops=ops, fetch=fetch,
+            min_budget=min_budget, sync=False)
+            for shard, dev in zip(shards, self.devices)]
+        # each shard queued its upload; wait for all of them once
+        for eng in self.shards:
+            eng.sync_upload()
+        self.n_docs = sum(sizes)
+
+    @property
+    def T(self) -> int:
+        return self.shards[0].T
+
+    def sparsify_queries(self, q_dense: np.ndarray
+                         ) -> tuple[np.ndarray, np.ndarray]:
+        return self.shards[0].sparsify_queries(q_dense)
+
+    def retrieve_tile_async(self, q_dense: Optional[np.ndarray],
+                            topk: Optional[int] = None, sparsified=None):
+        """Sparsify once, then dispatch the tile on every shard with no
+        host read in between. Returns a payload for ``finalize``."""
+        topk = topk or self.topk
+        if sparsified is None and q_dense is not None:
+            sparsified = self.sparsify_queries(q_dense)
+        in_flight = [eng.retrieve_tile_async(None, topk,
+                                             sparsified=sparsified)
+                     for eng in self.shards]
+        return in_flight, topk
+
+    def finalize(self, payload) -> tuple[np.ndarray, np.ndarray]:
+        """Each shard's top-k read through its engine, local rows made
+        global, then a stable merge by score (ties keep shard order)."""
+        in_flight, topk = payload
+        all_scores, all_rows = [], []
+        for flight, eng, off in zip(in_flight, self.shards,
+                                    self.row_offsets):
+            s, r = eng.finalize(flight)
+            valid = np.isfinite(s) & (r < eng.n_docs)
+            all_scores.append(np.where(valid, s, -np.inf))
+            all_rows.append(np.where(valid, r + off, self.n_docs))
+        scores = np.concatenate(all_scores, axis=1)
+        rows = np.concatenate(all_rows, axis=1)
+        order = np.argsort(-scores, axis=1, kind="stable")[:, :topk]
+        return (np.take_along_axis(scores, order, axis=1),
+                np.take_along_axis(rows, order, axis=1))
+
+    def retrieve_tile(self, q_dense: np.ndarray, topk: Optional[int] = None
+                      ) -> tuple[np.ndarray, np.ndarray]:
+        return self.finalize(self.retrieve_tile_async(q_dense, topk))

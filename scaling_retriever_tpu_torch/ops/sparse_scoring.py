@@ -19,8 +19,9 @@ once and the launches grow with N / rows only. Scores are exact whenever
 the products and their sums are (dyadic values): bit-equal to the
 reference there.
 
-``make_sharded_retrieve`` (the mesh-sharded scan) waits for the sharded
-engine (ROADMAP A10).
+``make_sharded_retrieve`` is the doc-sharded scan over a mesh: each shard
+scans its rows on its device, and the shards' top-k merge on the mesh's
+first device.
 """
 
 from __future__ import annotations
@@ -112,3 +113,38 @@ def retrieve_doc_major(terms: torch.Tensor, vals: torch.Tensor,
         top_s, sel = torch.topk(cat_s, k, dim=1)
         top_i = cat_i.gather(1, sel)
     return top_s, top_i
+
+
+def merge_shards(scores, rows, k: int, device):
+    """Per-shard (scores [nq, k_s], global rows [nq, k_s]) → the top ``k``
+    of their concatenation in shard order, on ``device``. The sort is
+    stable, so ties keep the lower position, as ``lax.top_k`` does over
+    the reference's all-gathered [nq, S * k]."""
+    cat_s = torch.cat([s.to(device) for s in scores], dim=1)
+    cat_r = torch.cat([r.to(device) for r in rows], dim=1)
+    top_s, idx = torch.sort(cat_s, dim=1, descending=True, stable=True)
+    return top_s[:, :k], cat_r.gather(1, idx[:, :k])
+
+
+def make_sharded_retrieve(mesh, axis: str, k: int, block: int = 4096):
+    """Doc-sharded retrieval over ``mesh``: each shard scores its rows
+    (``retrieve_doc_major`` on its device), maps its local rows to global
+    ones, and the shards' top-k merge on ``mesh.device``.
+
+    Returns fn(terms_shards, vals_shards, row_ids_shards, q_t) → (scores
+    [nq, k], global rows [nq, k]). Where the reference takes arrays sharded
+    over ``axis``, this takes one tensor per mesh entry, in mesh order
+    (shard i on ``mesh.devices[i]``); q_t [V, nq] is copied to each."""
+    del axis                                 # the shards are the lists
+
+    def fn(terms_shards, vals_shards, row_ids_shards, q_t):
+        scores, rows = [], []
+        for terms, vals, row_ids in zip(terms_shards, vals_shards,
+                                        row_ids_shards):
+            s, r = retrieve_doc_major(terms, vals, q_t.to(terms.device),
+                                      k=k, block=block)
+            scores.append(s)
+            rows.append(row_ids[r])
+        return merge_shards(scores, rows, k, mesh.device)
+
+    return fn

@@ -16,7 +16,15 @@
   * per-task metrics to ``trainer_log.jsonl`` (and wandb, where installed);
   * artifacts: a peft adapter or an HF checkpoint (``save_model``), and a
     resumable ``checkpoint-N/`` written with ``torch.save`` (the port's own
-    format), resumed by path or ``"auto"``, mid-epoch included.
+    format), resumed by path or ``"auto"``, mid-epoch included;
+  * placements as the reference chooses them over its mesh (tensor
+    parallel on a ``model`` axis above 1, FSDP under ``fsdp`` on a ``data``
+    axis above 1, else replicated), kept as ``param_shardings`` and
+    ``trainable_shardings`` and applied with
+    ``parallel.partitioning.apply_shardings``. A mesh whose entries are
+    one device runs the global batch's step there, as the reference's one
+    program over a sharded batch computes it; a mesh over several
+    distinct cards raises (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -34,6 +42,10 @@ import torch
 from scaling_retriever_tpu_torch.models import losses as losses_lib
 from scaling_retriever_tpu_torch.models.llama import fold_in
 from scaling_retriever_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from scaling_retriever_tpu_torch.parallel.partitioning import (
+    apply_shardings, fsdp_shardings, model_parallel_shardings,
+    replicated_shardings,
+)
 from scaling_retriever_tpu_torch.utils.profiling import profile_span
 
 STATE_FILE = "trainer_state.pt"
@@ -175,6 +187,10 @@ class Trainer:
         self.eval_fn = eval_fn
         self.mesh = mesh if mesh is not None else make_mesh(
             devices=[encoder.params.device])
+        if self.mesh.distinct:
+            raise NotImplementedError(
+                "training over several distinct cards needs "
+                "torch.distributed (ROADMAP A14)")
         self.step = 0        # optimizer steps completed
         self.micro_step = 0  # loader batches consumed
         self.epoch = 0
@@ -186,6 +202,23 @@ class Trainer:
         self.schedule = linear_warmup_decay(args.learning_rate, warmup,
                                             args.max_steps)
         self.use_lora = encoder.lora is not None
+        if self.mesh.shape.get("model", 1) > 1:
+            self.param_shardings = model_parallel_shardings(
+                encoder.params, self.mesh, fsdp=args.fsdp)
+        elif args.fsdp and self.mesh.shape["data"] > 1:
+            self.param_shardings = fsdp_shardings(encoder.params, self.mesh)
+        else:
+            self.param_shardings = replicated_shardings(encoder.params,
+                                                        self.mesh)
+        encoder.params = apply_shardings(encoder.params,
+                                         self.param_shardings)
+        if self.use_lora:
+            self.trainable_shardings = replicated_shardings(encoder.lora,
+                                                            self.mesh)
+            encoder.lora = apply_shardings(encoder.lora,
+                                           self.trainable_shardings)
+        else:
+            self.trainable_shardings = self.param_shardings
         self.params = encoder.params if self.use_lora else None
         self.trainable = encoder.lora if self.use_lora else encoder.params
         self._leaves = [t for _, t in tree_leaves(self.trainable)]

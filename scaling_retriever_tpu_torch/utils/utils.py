@@ -1,15 +1,77 @@
-"""Driver helpers (port of utils/utils.py) and a top-k comparator.
+"""Runtime and pipeline helpers (port of utils/utils.py) and a top-k
+comparator.
 
 PyTorch launches kernels asynchronously: a call returns once the work is
 queued on the stream. The pipelines below dispatch tiles ahead of the
 blocking host read of the oldest, so the read of one tile overlaps the
 device work of the next.
+
+The reference reduces across its mesh with a ``psum`` inside a sharded
+program. Here one process holds every shard's value, so ``sum_to_main`` and
+``distributed_weighted_average`` take the per-shard tensors and reduce
+them on the first shard's device, in shard order.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def is_first_worker() -> bool:
+    """True unless ``torch.distributed`` is initialized with a rank > 0."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() > 0)
+
+
+def to_list(x) -> list:
+    if isinstance(x, torch.Tensor):
+        return x.tolist()
+    return np.asarray(x).tolist()
+
+
+def supports_bfloat16(device="cuda") -> bool:
+    """A card of compute capability >= 8 (Ampere on), or the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return True
+    return torch.cuda.get_device_capability(device)[0] >= 8
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """Array and tensor leaves of ``batch`` as tensors on ``device``."""
+    return {k: torch.as_tensor(v, device=device)
+            if isinstance(v, (np.ndarray, torch.Tensor)) else v
+            for k, v in batch.items()}
+
+
+def get_data_source(args) -> str:
+    """The data source guessed from the first path ``args`` sets among
+    corpus_path, query_path and train_path; "msmarco" without one."""
+    from scaling_retriever_tpu_torch.constants import guess_data_source
+
+    for attr in ("corpus_path", "query_path", "train_path"):
+        path = getattr(args, attr, None)
+        if path:
+            return guess_data_source(path)
+    return "msmarco"
+
+
+def sum_to_main(values) -> torch.Tensor:
+    """The sum of per-shard tensors, on the first one's device."""
+    out = values[0]
+    for v in values[1:]:
+        out = out + v.to(out.device)
+    return out
+
+
+def distributed_weighted_average(values, weights) -> torch.Tensor:
+    """sum(value * weight) / max(sum(weight), 1e-9) over per-shard
+    tensors, on the first one's device."""
+    total = sum_to_main([v * w for v, w in zip(values, weights)])
+    return total / torch.clamp(sum_to_main(list(weights)), min=1e-9)
 
 
 def depth2_pipeline(items, dispatch, drain, depth: int = 3) -> None:

@@ -17,6 +17,7 @@ import torch
 
 from scaling_retriever_tpu.index import dense_index as ref
 from scaling_retriever_tpu_torch.index import dense_index as port
+from scaling_retriever_tpu_torch.parallel.mesh import make_mesh
 from scaling_retriever_tpu_torch.utils.utils import tie_equal_topk
 
 torch.set_num_threads(1)
@@ -284,8 +285,20 @@ def test_store_is_chunked_in_place_and_layout_follows():
         ix.add_batch([0], torch.zeros(1, 9, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="ids"):
         ix.add_batch([0, 1], v[:1].bfloat16())
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.make_sharded_dense_search(None, "data", k=10)
+    # the store's chunks as two shards of a two-entry mesh (rows past 300
+    # are the zero tail, row id -1): the direct search over the whole
+    # store, scores bit-equal and ids tie-equal
+    q = v[:4].bfloat16()
+    ids = torch.arange(384)
+    ids = torch.where(ids < 300, ids, -1)
+    got_s, got_r = port.make_sharded_dense_search(
+        make_mesh(devices=["cpu"] * 2), "data", k=10, chunk=128)(
+        [ix._store[:2], ix._store[2:]], [ids[:256], ids[256:]], q)
+    want_s, want_r = port._search_chunked(ix._store, q, k=10, chunk=128)
+    np.testing.assert_array_equal(got_s.numpy(), want_s.numpy())
+    for i in range(4):
+        tie_equal_topk(want_r[i].tolist(), want_s[i].tolist(),
+                       got_r[i].tolist(), got_s[i].tolist(), rtol=0.0)
 
 
 def test_default_device_is_cuda_without_fallback():

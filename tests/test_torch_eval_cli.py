@@ -23,6 +23,7 @@ from scaling_retriever_tpu.evaluation import beir_results as ref_beir  # noqa: E
 from scaling_retriever_tpu.evaluation import eval_sparse as ref  # noqa: E402
 from scaling_retriever_tpu_torch.evaluation import beir_results  # noqa: E402
 from scaling_retriever_tpu_torch.evaluation import eval_sparse as port  # noqa: E402
+from scaling_retriever_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from scaling_retriever_tpu_torch.utils.utils import tie_equal_topk  # noqa: E402
 
 torch.set_num_threads(1)
@@ -147,14 +148,45 @@ def test_beir_tasks_match_reference(setup, tmp_path):
                    "--beir_dataset_dir", str(tmp_path / "beir")])
 
 
-def test_unported_tasks_raise(setup, tmp_path):
-    """--use_mesh is the one path still unported; the text tasks, ported
-    since, look for their checkpoint on disk and fetch nothing."""
+@pytest.mark.parametrize("fmt,engine", [("sparse", "segsort"),
+                                        ("dense", "auto")])
+def test_use_mesh_matches_reference(setup, monkeypatch, fmt, engine):
+    """--use_mesh over eight devices: the JAX package's virtual CPU devices,
+    and ``["cpu"] * 8`` in the port (``local_devices`` monkeypatched): the
+    sharded engine (segsort) or the doc-sharded scan (auto = xla on the
+    CPU), the same runs as the reference's and as the one-device path."""
     root, index_dir, reps, _ = setup
-    with pytest.raises(NotImplementedError, match="A10"):
+    monkeypatch.setattr(mesh_lib, "local_devices",
+                        lambda device: [torch.device("cpu")] * 8)
+    made = []
+    real_make = mesh_lib.make_mesh
+    monkeypatch.setattr(mesh_lib, "make_mesh",
+                        lambda **kw: made.append(real_make(**kw)) or made[-1])
+    outs = {}
+    for name, mod, extra in (("ref", ref, []),
+                             ("port", port, ["--device", "cpu"]),
+                             ("one", port, ["--device", "cpu"])):
+        outs[name] = os.path.join(root, f"mesh_{name}_{fmt}_{engine}")
+        mod.main(["--task_name", "retrieval", "--query_reps_path", reps[fmt],
+                  "--index_dir", index_dir, "--out_dir", outs[name],
+                  "--top_k", "10", "--engine", engine, "--query_tile", "8"]
+                 + extra + (["--use_mesh"] if name != "one" else []))
+    assert len(made) == 1 and made[0].size == 8
+    _same_run(_load(outs["port"], "run.json"), _load(outs["ref"], "run.json"))
+    _same_run(_load(outs["port"], "run.json"), _load(outs["one"], "run.json"))
+
+
+def test_unported_tasks_raise(setup, tmp_path):
+    """--use_mesh on one device runs the one-device path (as the reference
+    does on one chip) into the same run.json; the text tasks look for their
+    checkpoint on disk and fetch nothing."""
+    root, index_dir, reps, _ = setup
+    for name, extra in (("mesh", ["--use_mesh"]), ("plain", [])):
         port.main(["--task_name", "retrieval", "--index_dir", index_dir,
-                   "--out_dir", str(tmp_path), "--query_reps_path",
-                   reps["sparse"], "--use_mesh", "--device", "cpu"])
+                   "--out_dir", str(tmp_path / name), "--query_reps_path",
+                   reps["sparse"], "--device", "cpu"] + extra)
+    assert _load(str(tmp_path / "mesh"), "run.json") == \
+        _load(str(tmp_path / "plain"), "run.json")
     missing = str(tmp_path / "no_model")
     for argv in (
             ["--task_name", "indexing", "--index_dir", str(tmp_path),

@@ -251,9 +251,63 @@ def test_beir_tasks_match_reference(tmp_path, monkeypatch):
     assert perfs["port"] == perfs["ref"]
 
 
+@pytest.mark.parametrize("n_dev", [8, 3])
+def test_use_mesh_matches_reference(data, tmp_path, monkeypatch, n_dev):
+    """--use_mesh over the JAX package's eight virtual CPU devices and over
+    ``["cpu"] * n_dev`` in the port (``local_devices`` monkeypatched):
+    MeshDenseRetriever in bf16 on both sides, equal runs (the fake
+    encoder's dyadic vectors are exact in bf16; top_k covers the corpus, so
+    no tie at a k boundary can change a run), and equal to the one-device
+    retriever's run; its rows land on their shards from the files."""
+    from scaling_retriever_tpu_torch.parallel import mesh as mesh_lib
+
+    root, corpus, queries, _ = data
+    model, tok = FakeDenseEncoder(), WordTokenizer()
+    _ref_with(monkeypatch, model, tok)
+    monkeypatch.setattr(mesh_lib, "local_devices",
+                        lambda device: [torch.device("cpu")] * n_dev)
+    emb = tmp_path / "embeds"
+    common = dict(data_source="msmarco", eval_batch_size=8)
+    port.write_doc_embeds(_args(port, "write_doc_embeds", corpus_path=corpus,
+                                doc_embed_dir=emb, doc_max_length=24,
+                                **common), model=model, tokenizer=tok)
+    runs = {}
+    for name, mod, mesh in (("ref", ref, True), ("port", port, True),
+                            ("one", port, False)):
+        out = tmp_path / name
+        rargs = _args(mod, "retrieval", query_path=queries,
+                      doc_embed_dir=emb, out_dir=out, query_max_length=16,
+                      top_k=100, **common, **({"use_mesh": True}
+                                              if mesh else {}))
+        if mod is ref:
+            mod.dense_retrieval(rargs)
+        else:
+            rargs.device = "cpu"
+            mod.dense_retrieval(rargs, model=model, tokenizer=tok)
+        with open(out / "run.json") as f:
+            runs[name] = json.load(f)
+    assert len(runs["port"]) == 8
+    assert runs["port"] == runs["ref"] == runs["one"]
+    # the placement: n rows split into equal chunk-aligned ranges
+    r = port.MeshDenseRetriever(H, mesh_lib.make_mesh(devices=["cpu"] * 3),
+                                chunk=16)
+    r.index_encoded_data(str(emb))
+    shards, row_ids = r._place()
+    n = len(r.ids)
+    assert n == 50 and [len(c) for c in shards] == [2, 2, 2]
+    vecs = np.concatenate([np.load(f) for f in
+                           port.obtain_doc_vec_dir_files(str(emb))[0]])
+    got = torch.cat([torch.cat(c) for c in shards]).float().numpy()
+    np.testing.assert_array_equal(got[:n], vecs)
+    assert not got[n:].any()
+    ids = torch.cat(row_ids)
+    assert ids[:n].tolist() == list(range(n)) and (ids[n:] == -1).all()
+
+
 def test_unported_paths_raise_naming_their_items(data, tmp_path):
-    """The sharded search is the one path still unported; the text tasks,
-    ported since, look for their checkpoint on disk and fetch nothing."""
+    """The text tasks look for their checkpoint on disk and fetch nothing,
+    --use_mesh included; MeshDenseRetriever builds over a mesh of repeated
+    entries."""
     root, corpus, queries, _ = data
     with pytest.raises(OSError):
         port.main(["--task_name", "write_doc_embeds", "--corpus_path",
@@ -265,10 +319,14 @@ def test_unported_paths_raise_naming_their_items(data, tmp_path):
                    "--doc_embed_dir", str(tmp_path / "e"), "--out_dir",
                    str(tmp_path / "o"), "--model_name_or_path",
                    str(tmp_path / "m"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.main(["--task_name", "retrieval", "--use_mesh", "--device",
-                   "cpu"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.MeshDenseRetriever(16, None)
+    with pytest.raises(OSError):
+        port.main(["--task_name", "retrieval", "--query_path", queries,
+                   "--doc_embed_dir", str(tmp_path / "e"), "--out_dir",
+                   str(tmp_path / "o"), "--model_name_or_path",
+                   str(tmp_path / "m"), "--use_mesh", "--device", "cpu"])
+    from scaling_retriever_tpu_torch.parallel.mesh import make_mesh
+
+    r = port.MeshDenseRetriever(16, make_mesh(devices=["cpu"] * 2))
+    assert r.ids == [] and r.dtype == torch.bfloat16 and r.chunk == 8192
     assert port.build_parser().parse_args(
         ["--task_name", "retrieval"]).device == "cuda"

@@ -123,3 +123,14 @@ def test_hybrid_rerank_and_t5_slice_modules_are_scanned():
                 "evaluation/eval_reranker.py", "models/t5.py",
                 "models/t5_encoder.py"):
         assert mod in files, mod
+
+
+def test_sharded_slice_modules_are_scanned():
+    """The sharded entry points' modules are among the files the checks
+    above cover."""
+    files = {os.path.relpath(p, PKG) for p in _port_files()
+             if p.startswith(PKG)}
+    for mod in ("parallel/partitioning.py", "parallel/mesh.py",
+                "ops/segsort_scoring.py", "ops/sparse_scoring.py",
+                "utils/utils.py", "data/collators.py"):
+        assert mod in files, mod

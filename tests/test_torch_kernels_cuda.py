@@ -264,6 +264,50 @@ def test_segsort_kernels_match_plain_path(cuda):
                            rtol=1e-6)
 
 
+@pytest.mark.parametrize("val_dtype", ["f32", "bf16", "q8"])
+def test_sharded_engine_on_one_card_matches_plain(cuda, val_dtype):
+    """Four shards on one card (a mesh of repeated entries) through the
+    kernels, against the plain-ops sharded engine and the one-engine
+    kernel path; every shard launches its fetch, segsum and top-m."""
+    rng = np.random.default_rng(9)
+    # long lists (~15,000 postings a term), so that each shard's slab is
+    # wide enough (>= 4 blocks of 4096) to take B5
+    V, N = 16, 40_000
+    rows = np.repeat(np.arange(N), 6)
+    cols = np.argsort(rng.random((N, V)), axis=1)[:, :6].reshape(-1)
+    vals = (rng.integers(1, 64, len(rows)) / 16.0).astype(np.float32)
+    idx = SparseIndex.from_triples(rows, cols, vals, list(range(N)), V)
+    qt = np.stack([rng.choice(V, 8, replace=False) for _ in range(8)]
+                  ).astype(np.int32)
+    qv = (rng.integers(1, 16, (8, 8)) / 8.0).astype(np.float32)
+    kw = dict(topk=50, query_terms_budget=8, val_dtype=val_dtype)
+    sharded = ss.ShardedSegsortEngine(idx, [cuda] * 4, **kw)
+    plain = ss.ShardedSegsortEngine(idx, [cuda] * 4, ops=ss.PLAIN, **kw)
+    fetch_key = {"f32": "fetch_f32", "bf16": "fetch_bf16",
+                 "q8": "fetch_q8"}[val_dtype]
+    cuda_lib.reset_launches()
+    s1, r1 = sharded.finalize(sharded.retrieve_tile_async(
+        None, sparsified=(qt, qv)))
+    counts = dict(cuda_lib.LAUNCHES)
+    assert all(counts[k] == 4 for k in (fetch_key, "segsum", "topm")), counts
+    s0, r0 = plain.finalize(plain.retrieve_tile_async(
+        None, sparsified=(qt, qv)))
+    if val_dtype == "q8":
+        # the folded scales make the contributions inexact and B4 sums a
+        # run right to left: within 1e-6, as for one engine. Each shard
+        # scales its own terms, so one engine's q8 codes differ
+        for q in range(8):
+            tie_equal_topk(r0[q], s0[q], r1[q], s1[q], rtol=1e-6)
+        return
+    np.testing.assert_array_equal(s1, s0)
+    np.testing.assert_array_equal(r1, r0)
+    one = ss.SegsortEngine(idx, device=cuda, **kw)
+    s2, r2 = one.finalize(one.retrieve_tile_async(None,
+                                                  sparsified=(qt, qv)))
+    for q in range(8):
+        tie_equal_topk(r2[q], s2[q], r1[q], s1[q], rtol=0.0)
+
+
 def test_topm_kernel_at_a_dense_like_slab(cuda):
     """B5 on an f32-output product of bf16 unit vectors with a zero tail
     (the padding rows of a dense index's last chunk): bit-equal to the

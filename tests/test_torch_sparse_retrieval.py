@@ -24,6 +24,7 @@ from scaling_retriever_tpu.index.indexer import SparseIndexer  # noqa: E402
 from scaling_retriever_tpu.index import sparse_retrieval as ref  # noqa: E402
 from scaling_retriever_tpu_torch.index import sparse_retrieval as port  # noqa: E402
 from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine  # noqa: E402
+from scaling_retriever_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from scaling_retriever_tpu_torch.utils.utils import tie_equal_topk  # noqa: E402
 
 torch.set_num_threads(1)
@@ -169,8 +170,17 @@ def test_write_run_false_and_engine_choice(setup, tmp_path):
         g = sorted(runs["cpp"][qid].items(), key=lambda kv: -kv[1])
         tie_equal_topk([d for d, _ in w], [s for _, s in w],
                        [d for d, _ in g], [s for _, s in g], rtol=0.0)
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.SparseRetrieval(model, index_dir, mesh=object(), device="cpu")
+    # a mesh of four CPU entries: the sharded segsort engine, the same run
+    mesh = make_mesh(devices=["cpu"] * 4)
+    sr = port.SparseRetrieval(model, index_dir, topk=10, engine="segsort",
+                              mesh=mesh)
+    assert len(sr._seg.shards) == 4 and sr.device == torch.device("cpu")
+    run_mesh, _ = sr.retrieve(q_batches)
+    for qid, want in runs["segsort"].items():
+        w = sorted(want.items(), key=lambda kv: -kv[1])
+        g = sorted(run_mesh[qid].items(), key=lambda kv: -kv[1])
+        tie_equal_topk([d for d, _ in w], [s for _, s in w],
+                       [d for d, _ in g], [s for _, s in g], rtol=0.0)
 
 
 @pytest.mark.parametrize("engine", ["auto", "segsort", "xla", "maxscore",

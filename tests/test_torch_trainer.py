@@ -453,10 +453,54 @@ def test_no_lora_trains_the_whole_model(start, tmp_path):
     assert os.path.exists(tmp_path / "full" / "model.safetensors")
 
 
-def test_mesh_is_one_card():
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_fsdp_matches_replicated(start, tmp_path, fsdp):
+    """The JAX package's Trainer over its 8-device mesh against the port's
+    over ``["cpu"] * 8``, a (data 4, model 2) mesh and one entry, on the
+    same global batches of 8 queries: the placements' specs equal the
+    reference's; the port's losses bit-equal across its meshes (one global
+    step on one device) and within rtol 1e-4, atol 1e-6 of the
+    reference's."""
+    from scaling_retriever_tpu.parallel.mesh import make_mesh as ref_mesh
+    from scaling_retriever_tpu_torch.parallel import partitioning
+
+    batches = _fake_batches(3, 8, 2, 8)
+    kw = dict(max_steps=3, logging_steps=1, fsdp=fsdp, learning_rate=1e-3)
+    ref, _ = _pair(start, "sparse", "nce")
+    rtr = ref_trainer.Trainer(
+        ref, ref_trainer.LLM2RetrieverTrainingArgs(
+            **vars(_args(tmp_path / "ref", **kw))),
+        ListLoader(batches), mesh=ref_mesh(model=1))
+    rtr.train()
+    want = [e["loss"] for e in _logs(tmp_path / "ref")]
+    losses = {}
+    for name, (data, model, n) in {"8": (8, 1, 8), "4x2": (4, 2, 8),
+                                   "1": (1, 1, 1)}.items():
+        tr = Trainer(_fresh(start), _args(tmp_path / name, **kw),
+                     ListLoader(batches),
+                     mesh=make_mesh(data, model, devices=["cpu"] * n))
+        if name == "8":
+            got_specs = {p: sh.spec for p, sh in
+                         partitioning._flatten(tr.param_shardings)}
+            want_specs = {tuple(k.key for k in kp): tuple(sh.spec)
+                          for kp, sh in jax.tree_util.tree_flatten_with_path(
+                              rtr.param_shardings)[0]}
+            assert got_specs == want_specs
+        tr.train()
+        losses[name] = [e["loss"] for e in _logs(tmp_path / name)]
+    assert losses["8"] == losses["4x2"] == losses["1"]
+    np.testing.assert_allclose(losses["8"], want, rtol=RTOL, atol=ATOL)
+
+
+def test_mesh_is_one_card(start, tmp_path):
+    """A mesh's step runs on its first entry; a mesh of repeated entries
+    trains there, one over several distinct cards raises (ROADMAP A14)."""
     mesh = make_mesh(device="cpu")
     assert mesh.shape == {"data": 1, "model": 1}
     b = shard_batch({"x": np.arange(3), "ids": ["a"]}, mesh)
     assert isinstance(b["x"], torch.Tensor) and b["ids"] == ["a"]
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_mesh(devices=["cpu", "cpu"])
+    two = make_mesh(devices=["cpu", "cpu"])
+    assert two.shape == {"data": 2, "model": 1} and not two.distinct
+    with pytest.raises(NotImplementedError, match="A14"):
+        Trainer(_fresh(start), _args(tmp_path), ListLoader([]),
+                mesh=make_mesh(devices=["cuda:0", "cuda:1"]))
