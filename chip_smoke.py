@@ -118,8 +118,13 @@ Phases (any failure raises and exits non-zero):
      MeshDenseRetriever against LocalDenseRetriever over 65,536 rows
      written as embedding files; (c) inside phase 8, the Trainer two
      steps at the recipe's micro batch on a (data 4, fsdp) and a (data
-     2, model 2) mesh, losses bit-equal to a one-entry mesh; launch
-     counts read as in 4;
+     2, model 2) mesh, losses bit-equal to a one-entry mesh; (d) inside
+     phase 8 too, the distributed Trainer (torch.distributed, an NCCL
+     world of 1 on the card, a file:// rendezvous, a (1, 1) DeviceMesh,
+     fsdp on, LoRA dropout 0.1) two optimizer steps of two micro steps at
+     the recipe's micro batch: losses and factors bit-equal to the
+     single-process Trainer's, micro step time and peak memory beside
+     its; the process group destroyed after; launch counts read as in 4;
  11. print the card, per-kernel numbers as one JSON line, and last
      {"ok": true, "device": {...}}.
 """
@@ -3286,6 +3291,82 @@ def mesh_training(dev, enc, base_cfg, base_args, lc, batches, seed: int,
         f"{time.perf_counter() - t_phase:.1f} s; card {card_s}")
 
 
+DIST_GAS = 2          # 2 optimizer steps of 2 micro steps each
+
+
+def distributed_training(dev, enc, base_cfg, base_args, lc, batches,
+                         seed: int, card_s: str, tmp: str) -> None:
+    """Phase 10d: the Trainer through torch.distributed (an NCCL world of
+    one on ``dev``: the rank's rows of every batch, the reps gathered over
+    the data group, the gradients all-reduced) against the single-process
+    Trainer on the same batches and factors, fsdp on (replicated at data
+    1, as the reference chooses), LoRA dropout on: losses and factors
+    bit-equal; each arm's micro step time and peak memory."""
+    import torch.distributed as dist
+
+    from scaling_retriever_tpu_torch.models.encoder import LlamaBiSparse
+    from scaling_retriever_tpu_torch.models.lora import init_lora_params
+    from scaling_retriever_tpu_torch.parallel.mesh import make_mesh
+    from scaling_retriever_tpu_torch.training.trainer import (Trainer,
+                                                             tree_leaves)
+
+    t_phase = time.perf_counter()
+
+    def arm(name, mesh):
+        g = torch.Generator(device=dev).manual_seed(seed + 83)
+        e = LlamaBiSparse(enc.params, base_cfg,
+                          init_lora_params(base_cfg, lc, g, device=dev), lc)
+        out = os.path.join(tmp, "dist_" + name)
+        args = dataclasses.replace(
+            base_args, output_dir=out, lora_dropout=lc.lora_dropout,
+            gradient_accumulation_steps=DIST_GAS, max_steps=2,
+            save_steps=None, resume_from_checkpoint=None, fsdp=True,
+            logging_steps=1)
+        tr = Trainer(e, args, list(batches[:2 * DIST_GAS]), mesh=mesh)
+        free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with step_times() as ms:
+            tr.train()
+        peak = torch.cuda.max_memory_allocated(dev)
+        res = ([x["loss"] for x in read_log(out)],
+               [t.detach().clone() for _, t in tree_leaves(tr.trainable)],
+               ms, peak)
+        del tr, e
+        free()
+        return res
+
+    one = arm("one_process", make_mesh(devices=[dev]))
+    cuda = dev.type == "cuda"      # gloo on the CPU, for a rehearsal
+    dist.init_process_group(
+        "nccl" if cuda else "gloo", init_method="file://" + os.path.join(
+            tmp, "nccl_rendezvous"), rank=0, world_size=1,
+        device_id=dev if cuda else None)
+    try:
+        mesh = make_mesh(1, 1, device=dev.type)
+        check(mesh.distributed and mesh.device == dev, f"the distributed "
+              f"mesh {mesh} is not over {dev}")
+        world = arm("world_1", mesh)
+    finally:
+        dist.destroy_process_group()
+    check(world[0] == one[0] and len(one[0]) == 2,
+          f"the distributed Trainer's losses {world[0]} differ from the "
+          f"single-process Trainer's {one[0]}")
+    check(all(torch.equal(a, b) for a, b in zip(world[1], one[1])),
+          "the distributed Trainer's LoRA factors differ from the "
+          "single-process Trainer's")
+    report = "; ".join(
+        f"{name}: micro steps {[round(x, 1) for x in ms]} ms (the last "
+        f"{ms[-1]:.1f} ms), peak card memory {peak / 1e9:.2f} GB"
+        for name, (_, _, ms, peak) in (("single process", one),
+                                       ("NCCL world of 1", world)))
+    log(f"phase 10d, the Trainer through torch.distributed at {TRAIN_Q} x "
+        f"(1 + {TRAIN_NEGS}), {TRAIN_QLEN}/{TRAIN_DLEN} tokens, fsdp, LoRA "
+        f"dropout {lc.lora_dropout}, 2 optimizer steps of {DIST_GAS} micro "
+        f"steps: losses {world[0]} and {len(world[1])} LoRA factors "
+        f"bit-equal to the single-process Trainer's; {report}; "
+        f"{time.perf_counter() - t_phase:.1f} s; card {card_s}")
+
+
 def training_phase(dev, ckpt: str, seed: int, card_s: str, tmp: str) -> dict:
     """Phase 8: training at Llama-3.2-1B width from the checkpoint at
     ``ckpt``: sparse NCE timed, profiled and fitting one batch; remat full
@@ -3487,6 +3568,13 @@ def training_phase(dev, ckpt: str, seed: int, card_s: str, tmp: str) -> dict:
     mesh_training(dev, enc, base_cfg, trainer.args,
                   dataclasses.replace(lc0, lora_dropout=0.1), batches, seed,
                   card_s, tmp)
+    free()
+
+    # ---- 3c. the Trainer through torch.distributed (phase 10d) ----
+    lap("phase 10d, the distributed Trainer")
+    distributed_training(dev, enc, base_cfg, trainer.args,
+                         dataclasses.replace(lc0, lora_dropout=0.1), batches,
+                         seed, card_s, tmp)
     free()
 
     # ---- 4. the trained adapter served back through B1, B4 and B5 ----

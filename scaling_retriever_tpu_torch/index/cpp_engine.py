@@ -3,10 +3,11 @@ index/cpp_engine.py over the port's own ``csrc/sparse_engine.cpp``): the
 server's hot lane and ``SparseRetrieval``'s engine "cpp".
 
 The shared library is built at first use with g++ and the flags below into
-``build/native/<key>/`` at the repository root, keyed by a hash of the
-source and the flags (never by file times, which a checkout leaves in any
-order). Each build writes a temporary file in that directory and renames
-it into place (``os.replace``), so processes building at once never load a
+``build/native/<key>/`` at the repository root (or under
+``$SRT_BUILD_DIR``: ``utils.build_dir``), keyed by a hash of the source
+and the flags (never by file times, which a checkout leaves in any order).
+Each build writes a temporary file in that directory and renames it into
+place (``os.replace``), so processes building at once never load a
 half-written library.
 """
 
@@ -23,6 +24,7 @@ from typing import Optional
 import numpy as np
 
 from scaling_retriever_tpu_torch.index.inverted_index import SparseIndex
+from scaling_retriever_tpu_torch.utils.utils import build_dir
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "sparse_engine.cpp")
@@ -45,7 +47,7 @@ def ensure_built() -> str:
     """Compile the engine if this source and these flags are not built yet;
     return the library's path."""
     cxx = os.environ.get("CXX", "g++")
-    out_dir = os.path.join(BUILD_ROOT, _key(cxx))
+    out_dir = os.path.join(build_dir(BUILD_ROOT), _key(cxx))
     lib_path = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(lib_path):
         return lib_path

@@ -30,6 +30,9 @@ from scaling_retriever_tpu_torch.models.lora import (LoraConfig,
                                                     load_adapter, merge_lora,
                                                     save_adapter)
 from scaling_retriever_tpu_torch.ops.pooling import dense_pool, sparse_pool
+from scaling_retriever_tpu_torch.parallel.collectives import (Part,
+                                                             gather_rows)
+from scaling_retriever_tpu_torch.parallel.mesh import rank_part
 
 
 def _resolve_model_dir(name_or_path: str) -> str:
@@ -86,28 +89,37 @@ class LLM2Retriever:
 
     def encode_pure(self, params: LlamaBiForMNTP, lora: Optional[dict],
                     input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+                    dropout_seed: Optional[int] = None,
+                    part: Optional[Part] = None) -> torch.Tensor:
         """[B, S] ids and mask on the model's device → [B, V] (sparse) or
         [B, H] (dense) f32 reps. ``dropout_seed`` turns the LoRA dropout
-        on (training)."""
+        on (training); ``part`` places the call in a step over several
+        ranks."""
         on = lora is not None and self.lora_config is not None
         scale = self.lora_config.scaling if on else 0.0
         drop = self.lora_config.lora_dropout if on else 0.0
         if self.POOLING == "sparse":
             logits = params.forward_logits(input_ids, attention_mask, lora,
-                                           scale, drop, dropout_seed)
+                                           scale, drop, dropout_seed, part)
             return sparse_pool(logits, attention_mask, self.config.hidden_size)
         hidden = params.forward_hidden(input_ids, attention_mask, lora, scale,
-                                       drop, dropout_seed)
+                                       drop, dropout_seed, part)
         return dense_pool(hidden, attention_mask)
 
     def loss_forward(self, params: LlamaBiForMNTP, lora: Optional[dict],
-                     batch: dict, dropout_seed: Optional[int] = None) -> dict:
+                     batch: dict, dropout_seed: Optional[int] = None,
+                     mesh=None) -> dict:
         """The task losses of one batch, as the collators of
         ``data/collators.py`` lay it out (numpy arrays or tensors). Each
         encode call draws its dropout from ``fold_in(dropout_seed, call)``.
         The sparse head adds the FLOPS regularizers ``query_reg`` and
-        ``doc_reg``; the dense head divides by ``T``, the sparse by 1."""
+        ``doc_reg``; the dense head divides by ``T``, the sparse by 1.
+
+        On a distributed ``mesh`` (the whole global batch on every rank)
+        each rank encodes its rows of every encoded input that ``data``
+        divides and gathers the reps over the data group, so the losses
+        are the global batch's, as in the reference's one program; the
+        labels and teacher scores are read whole."""
         dev = params.device
         counter = [0]
 
@@ -115,9 +127,14 @@ class LLM2Retriever:
             seed = (None if dropout_seed is None
                     else fold_in(dropout_seed, counter[0]))
             counter[0] += 1
-            return self.encode_pure(
-                params, lora, torch.as_tensor(input_ids, device=dev),
-                torch.as_tensor(attention_mask, device=dev), seed)
+            ids = torch.as_tensor(input_ids, device=dev)
+            mask = torch.as_tensor(attention_mask, device=dev)
+            part = rank_part(ids.shape[0], mesh)
+            if part is None:
+                return self.encode_pure(params, lora, ids, mask, seed)
+            reps = self.encode_pure(params, lora, ids[part.local],
+                                    mask[part.local], seed, part)
+            return gather_rows(reps, mesh.group("data"))
 
         def arr(name):
             return torch.as_tensor(batch[name], device=dev)

@@ -17,11 +17,18 @@ Training runs the same forward under autograd. LoRA dropout (inverted, on
 the branch's input only) is on only when a ``dropout_seed`` is passed;
 each mask is drawn from a generator seeded by (seed, layer, slot) through
 ``fold_in``, so a layer that ``config.remat`` recomputes in the backward
-draws the same masks again. ``remat`` takes the reference's values: full
-remat checkpoints each layer; the dots policies save the matmul outputs
-(torch's selective activation checkpointing); the named policies save the
-layer's named tensors (``REMAT_NAMES``) by checkpointing the stages
-between them.
+draws the same masks again. Over several ranks (a ``Part``, see
+``parallel/collectives.py``) a rank draws the global batch's mask and keeps
+its rows (and, for a row-parallel projection, its features), so the masks
+are those of one process over the global batch. Under tensor parallelism
+(``parallel/partitioning.py`` leaves each rank its shard of the q/k/v/
+gate/up output rows and of the o/down input columns) the projections run
+column- and row-parallel, and attention runs this rank's heads.
+
+``remat`` takes the reference's values: full remat checkpoints each
+layer; the dots policies save the matmul outputs (torch's selective
+activation checkpointing); the named policies save the layer's named
+tensors (``REMAT_NAMES``) by checkpointing the stages between them.
 """
 
 from __future__ import annotations
@@ -33,10 +40,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from scaling_retriever_tpu_torch.models.config import ModelConfig
+from scaling_retriever_tpu_torch.parallel.collectives import (Part,
+                                                             from_model,
+                                                             to_model)
 
 MASK_VALUE = -1e9
 _M64 = (1 << 64) - 1
@@ -125,21 +136,74 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return (xf * c + _rotate_half(xf) * s).to(x.dtype)
 
 
+def _tp(weight) -> Optional[tuple]:
+    """(kind, rank, size, group) of a projection whose weight is this
+    rank's tensor-parallel shard (a DTensor split over a ``model`` mesh
+    axis): "col" for output rows ([out, in] dim 0), "row" for input
+    columns; None for a whole weight."""
+    if not isinstance(weight, DTensor) or \
+            "model" not in weight.device_mesh.mesh_dim_names:
+        return None
+    mesh = weight.device_mesh
+    at = mesh.mesh_dim_names.index("model")
+    kind = {0: "col", 1: "row"}[weight.placements[at].dim]
+    return (kind, mesh.get_local_rank("model"), mesh.size(at),
+            mesh.get_group("model"))
+
+
+def _uniform(shape, g: torch.Generator, device, part: Optional[Part],
+             tp: Optional[tuple]) -> torch.Tensor:
+    """U[0, 1) of ``shape``; with a ``part``, this rank's slice of the
+    draw over the global batch (and over every rank's features of a
+    row-parallel input), so its bits are one process's."""
+    if part is None and tp is None:
+        return torch.rand(shape, generator=g, device=device)
+    rows, row0 = (shape[0], 0) if part is None else (part.rows, part.row0)
+    row = tp is not None and tp[0] == "row"
+    feats = shape[-1] * (tp[2] if row else 1)
+    u = torch.rand((rows, *shape[1:-1], feats), generator=g,
+                   device=device)[row0:row0 + shape[0]]
+    if row:
+        u = u[..., tp[1] * shape[-1]:(tp[1] + 1) * shape[-1]]
+    return u
+
+
 def dense(x: torch.Tensor, linear: nn.Linear, lora: Optional[dict] = None,
           lora_scale: float = 0.0, lora_dropout: float = 0.0,
-          dropout_seed: Optional[int] = None) -> torch.Tensor:
+          dropout_seed: Optional[int] = None,
+          part: Optional[Part] = None) -> torch.Tensor:
     """``linear(x)`` plus an optional LoRA branch ``(x @ A) @ B * s``, with
     inverted dropout on the branch's input when ``dropout_seed`` is given
-    (the mask drawn from a generator seeded with it)."""
-    y = linear(x)
+    (the mask drawn from a generator seeded with it). A ``linear`` whose
+    weight is a tensor-parallel shard (``_tp``) runs column- or
+    row-parallel over the model group: the branch takes the matching
+    columns of B or rows of A, and a row-parallel output is summed over
+    the group."""
+    tp = _tp(linear.weight)
+    if tp is None:
+        y = linear(x)
+    else:
+        if tp[0] == "col":
+            x = to_model(x, tp[3])
+        bias = None if linear.bias is None else linear.bias.to_local()
+        y = F.linear(x, linear.weight.to_local(), bias)
     if lora is not None:
+        a, b = lora["a"], lora["b"]
+        if tp is not None and tp[0] == "col":
+            n = b.shape[-1] // tp[2]
+            b = b[:, tp[1] * n:(tp[1] + 1) * n]
+        elif tp is not None:
+            n = a.shape[0] // tp[2]
+            a = a[tp[1] * n:(tp[1] + 1) * n]
         xl = x
         if lora_dropout > 0.0 and dropout_seed is not None:
             keep = 1.0 - lora_dropout
             g = torch.Generator(device=x.device).manual_seed(dropout_seed)
-            mask = torch.rand(x.shape, generator=g, device=x.device) < keep
+            mask = _uniform(x.shape, g, x.device, part, tp) < keep
             xl = torch.where(mask, x / keep, 0.0).to(x.dtype)
-        y = y + (xl @ lora["a"].to(x.dtype)) @ lora["b"].to(x.dtype) * lora_scale
+        y = y + (xl @ a.to(x.dtype)) @ b.to(x.dtype) * lora_scale
+    if tp is not None and tp[0] == "row":
+        y = from_model(y, tp[3])
     return y
 
 
@@ -192,17 +256,17 @@ class LlamaLayer(nn.Module):
         fac = None if c["lora"] is None else c["lora"].get(group, {}).get(name)
         seed = (None if c["seed"] is None else fold_in(c["seed"], slot))
         return dense(x, getattr(self, name), fac, c["scale"], c["dropout"],
-                     seed)
+                     seed, c["part"])
 
     def _qkv(self, h, c):
         cfg = c["config"]
         b_, s, _ = h.shape
-        nq, nkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                       cfg.head_dim_)
+        hd = cfg.head_dim_
         x = rms_norm(h, self.input_norm, cfg.rms_norm_eps)
-        q = self._dn(x, "wq", "attn", 0, c).reshape(b_, s, nq, hd)
-        k = self._dn(x, "wk", "attn", 1, c).reshape(b_, s, nkv, hd)
-        v = self._dn(x, "wv", "attn", 2, c).reshape(b_, s, nkv, hd)
+        # this rank's heads under tensor parallelism, else all of them
+        q = self._dn(x, "wq", "attn", 0, c).reshape(b_, s, -1, hd)
+        k = self._dn(x, "wk", "attn", 1, c).reshape(b_, s, -1, hd)
+        v = self._dn(x, "wv", "attn", 2, c).reshape(b_, s, -1, hd)
         return (apply_rope(q, c["cos"], c["sin"]),
                 apply_rope(k, c["cos"], c["sin"]), v)
 
@@ -224,13 +288,13 @@ class LlamaLayer(nn.Module):
     def forward(self, h, bias, cos, sin, config: ModelConfig,
                 lora: Optional[dict] = None, lora_scale: float = 0.0,
                 lora_dropout: float = 0.0, dropout_seed: Optional[int] = None,
-                save_mid: Optional[bool] = None):
+                part: Optional[Part] = None, save_mid: Optional[bool] = None):
         """One layer. ``save_mid`` None runs it plainly; False or True
         checkpoints the stages between q/k/v and the attention output (and,
         when True, the MLP mid), which are then saved for the backward."""
         c = {"bias": bias, "cos": cos, "sin": sin, "config": config,
              "lora": lora, "scale": lora_scale, "dropout": lora_dropout,
-             "seed": dropout_seed}
+             "seed": dropout_seed, "part": part}
         if save_mid is None:
             h = h + self._attn_out(*self._qkv(h, c), c)
             return h + self._mlp(h, c)
@@ -300,10 +364,12 @@ class LlamaBiForMNTP(nn.Module):
                        attention_mask: torch.Tensor,
                        lora: Optional[dict] = None,
                        lora_scale: float = 0.0, lora_dropout: float = 0.0,
-                       dropout_seed: Optional[int] = None) -> torch.Tensor:
+                       dropout_seed: Optional[int] = None,
+                       part: Optional[Part] = None) -> torch.Tensor:
         """[B, S] ids and mask → final-norm hidden states [B, S, H]. Layers
         are rematerialized per ``config.remat`` only while autograd
-        records."""
+        records. ``part``: this rank's place in a training step over
+        several ranks."""
         cfg = self.config
         h = self.embed_tokens(input_ids.long()).to(cfg.dtype)
         bias = padding_bias(attention_mask)
@@ -315,21 +381,23 @@ class LlamaBiForMNTP(nn.Module):
             h = _run_layer(layer, remat, h, bias, cos, sin, cfg,
                            _layer_lora(lora, i), lora_scale,
                            lora_dropout if use_dropout else 0.0,
-                           fold_in(dropout_seed, i) if use_dropout else None)
+                           fold_in(dropout_seed, i) if use_dropout else None,
+                           part)
         return rms_norm(h, self.final_norm, cfg.rms_norm_eps)
 
     def forward_logits(self, input_ids: torch.Tensor,
                        attention_mask: torch.Tensor,
                        lora: Optional[dict] = None,
                        lora_scale: float = 0.0, lora_dropout: float = 0.0,
-                       dropout_seed: Optional[int] = None) -> torch.Tensor:
+                       dropout_seed: Optional[int] = None,
+                       part: Optional[Part] = None) -> torch.Tensor:
         """LM-head logits [B, S, V] (no dropout on the head's LoRA, as in
         the reference)."""
         if self.lm_head is None and not self.config.tie_word_embeddings:
             raise ValueError("this model carries no LM head (untied "
                              "embeddings, weights without an lm_head)")
         h = self.forward_hidden(input_ids, attention_mask, lora, lora_scale,
-                                lora_dropout, dropout_seed)
+                                lora_dropout, dropout_seed, part)
         if self.lm_head is None:
             return F.linear(h, self.embed_tokens.weight.to(h.dtype))
         head_lora = None if lora is None else lora.get("lm_head")

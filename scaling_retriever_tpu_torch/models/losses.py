@@ -7,9 +7,10 @@
     KL divergence (batchmean, log target), and NCE plus KL.
 
 Softmaxes, the cross-entropy and the KL run in float32 whatever the reps'
-dtype, as in the reference. The losses are over the whole batch on one
-card; ``loss_scale`` in the trainer carries the reference's
-``1/world_size`` factor where a recipe wants it.
+dtype, as in the reference. The losses are over the whole global batch
+(over several ranks the encoders gather the reps first, as the
+reference's one program sees them); ``loss_scale`` in the trainer carries
+the reference's ``1/world_size`` factor where a recipe wants it.
 """
 
 from __future__ import annotations

@@ -35,9 +35,11 @@ class T5Sparse(LLM2Retriever):
     def encode_pure(self, params: t5.T5ForConditionalGeneration,
                     lora: Optional[dict], input_ids: torch.Tensor,
                     attention_mask: torch.Tensor,
-                    dropout_seed: Optional[int] = None) -> torch.Tensor:
-        """[B, S] ids and mask → [B, V] f32 reps. ``dropout_seed`` is taken
-        and unused: the reference's T5 forward has no LoRA dropout."""
+                    dropout_seed: Optional[int] = None,
+                    part=None) -> torch.Tensor:
+        """[B, S] ids and mask → [B, V] f32 reps. ``dropout_seed`` and
+        ``part`` are taken and unused: the reference's T5 forward has no
+        LoRA dropout, so a rank's rows need no mask."""
         scale = (self.lora_config.scaling
                  if lora is not None and self.lora_config else 0.0)
         logits = params.forward_logits(input_ids, attention_mask, input_ids,

@@ -4,7 +4,9 @@ The sources are compiled at first use with ``nvcc`` for ``sm_90a`` (one
 ``nvcc -c`` per source, all started together, then one link) into a shared
 library with a plain C interface, cached under ``build/kernels/<hash>/`` at
 the repository root (keyed by the sources and flags), and loaded with
-``ctypes``. Nothing here runs at import time: the CPU tests import every
+``ctypes``. ``$SRT_BUILD_DIR`` moves the build (``utils.build_dir``), as
+an installed package in a directory it cannot write needs. Nothing here
+runs at import time: the CPU tests import every
 module on a host with no ``nvcc``.
 
 Each C entry launches on the stream it is given and returns
@@ -24,6 +26,8 @@ import tempfile
 import threading
 
 import torch
+
+from scaling_retriever_tpu_torch.utils.utils import build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
@@ -81,12 +85,13 @@ def build(verbose: bool = False) -> str:
     """Compile the kernels (if this source set is not built yet) and return
     the library's path. ``verbose`` adds ``-Xptxas -v`` and prints what the
     compiler says (registers, shared memory, spills)."""
-    out_dir = os.path.join(BUILD_ROOT, _key())
+    root = build_dir(BUILD_ROOT)
+    out_dir = os.path.join(root, _key())
     lib_path = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(lib_path) and not verbose:
         return lib_path
-    os.makedirs(BUILD_ROOT, exist_ok=True)
-    tmp = tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=root, prefix="tmp-")
     extra = ("-Xptxas", "-v") if verbose else ()
     exe = nvcc()
     procs = []

@@ -54,6 +54,7 @@ from scaling_retriever_tpu_torch.ops.segsum import (
     _run_end_mask, _segsum_passes, eligible, segsum_mask, segsum_mask_plain,
 )
 from scaling_retriever_tpu_torch.ops.topm import block_topm, block_topm_plain
+from scaling_retriever_tpu_torch.parallel.mesh import local_devices
 from scaling_retriever_tpu_torch.utils.utils import force_materialized
 
 # fetch_bmx is B1 at its block-max call site (ops/blockmax.py): the same
@@ -526,10 +527,15 @@ class SegsortEngine:
     q8 pass ``(packed_flat, scales, offsets, n_docs)`` with the host [V]
     scales of ``pack_postings_q8``. ``index`` is then ignored.
 
+    The parameters up to ``val_dtype`` are the reference's, in its order.
+    ``packed_read`` and ``pack_pad_bytes`` are its too, but this engine's
+    read has no such choice: a value other than the default raises.
+
     ``ops`` selects the kernels (default) or their plain versions for every
-    tile this engine runs. ``sync=False`` returns with the upload still
-    queued (``sync_upload`` waits for it), so that several engines' uploads
-    overlap.
+    tile this engine runs. ``sync_upload=False`` (or ``sync=False``, which
+    wins where given) returns with the upload still queued (the
+    ``sync_upload()`` method waits for it), so that several engines'
+    uploads overlap.
 
     ``fetch`` picks the posting fetch: ``"dma"`` (the job-table fetch over
     the kernels above), ``"gather"`` (``segsort_retrieve``: one row gather
@@ -542,10 +548,16 @@ class SegsortEngine:
     """
 
     def __init__(self, index=None, topk: int = 1000,
-                 query_terms_budget: int = 64, val_dtype: str = "f32",
-                 device="cuda", device_csr=None, ops: Ops = KERNELS,
-                 fetch: str = "dma", min_budget: int = 1 << 17,
-                 sync: bool = True):
+                 query_terms_budget: int = 64, min_budget: int = 1 << 17,
+                 fetch: str = "dma", sync_upload: bool = True,
+                 device_csr=None, val_dtype: str = "f32",
+                 packed_read: Optional[bool] = None,
+                 pack_pad_bytes: int = 1 << 19, *, device="cuda",
+                 ops: Ops = KERNELS, sync: Optional[bool] = None):
+        if packed_read is not None or pack_pad_bytes != 1 << 19:
+            raise ValueError("packed_read and pack_pad_bytes: this engine "
+                             "reads scores and rows as they are; it has no "
+                             "packed read to choose")
         if val_dtype not in ("f32", "bf16", "q8"):
             raise ValueError(f"val_dtype {val_dtype!r}: f32, bf16 or q8")
         if fetch not in ("auto", "dma", "gather"):
@@ -614,7 +626,7 @@ class SegsortEngine:
         self._host_offsets = host_offsets
         self._host_lens = np.diff(host_offsets)
         self.offsets = torch.from_numpy(host_offsets).to(self.device)
-        if sync:
+        if sync_upload if sync is None else sync:
             self.sync_upload()
 
     def sync_upload(self) -> None:
@@ -723,7 +735,8 @@ class SegsortEngine:
 
 
 class ShardedSegsortEngine:
-    """Doc-sharded segsort over a list of devices (repeats allowed).
+    """Doc-sharded segsort over a list of devices (repeats allowed; every
+    visible card by default, as the reference defaults to every device).
 
     ``SparseIndex.shard_by_rows`` splits the corpus into doc-range shards
     with local rows, each posting list in its order; each shard gets its
@@ -735,11 +748,12 @@ class ShardedSegsortEngine:
     ``shard_by_rows`` returns), to build several layouts from one split.
     """
 
-    def __init__(self, index, devices, topk: int = 1000,
+    def __init__(self, index, devices=None, topk: int = 1000,
                  query_terms_budget: int = 64, min_budget: int = 1 << 17,
                  val_dtype: str = "f32", ops: Ops = KERNELS,
                  fetch: str = "dma"):
-        self.devices = [torch.device(d) for d in devices]
+        self.devices = [torch.device(d)
+                        for d in devices or local_devices()]
         self.topk = topk
         shards = (list(index) if isinstance(index, (list, tuple))
                   else index.shard_by_rows(len(self.devices)))

@@ -15,8 +15,16 @@ and ``apply_shardings`` maps each chosen axis onto the port's tensors.
 ``apply_shardings`` places every tensor on the mesh's device and records
 its spec in the port's axis order as ``tensor.sharding_spec`` (an axis
 chosen on the stacked layer axis has no port dimension and is dropped).
-That is all a mesh whose entries are one device needs. Over several
-distinct cards it raises: training there is ROADMAP A14.
+That is all a mesh whose entries are one device needs. On a distributed
+mesh (``torchrun``) it then applies the specs to the encoder's module.
+A weight whose spec names ``model`` becomes a DTensor over the model axis
+holding this rank's shard (``Shard(dim)``), which the forward runs
+column- or row-parallel (``models/llama.py``). Then, where a spec names
+``data``, FSDP2's ``fully_shard`` (each layer, then the root)
+shards it ``Shard(dim)`` on the dim its spec names, over the data axis
+(on top of the model split: a 2-D DTensor), the tensors without a data
+axis left out (``ignored_params``). A single process over several
+distinct cards raises: launch one process per card under ``torchrun``.
 """
 
 from __future__ import annotations
@@ -25,7 +33,11 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
+from torch.distributed.tensor import DTensor, Shard
 
+from scaling_retriever_tpu_torch.models.llama import LlamaBiForMNTP
+from scaling_retriever_tpu_torch.models.t5 import T5ForConditionalGeneration
 from scaling_retriever_tpu_torch.models.weights import _BIASES, _MATS
 from scaling_retriever_tpu_torch.parallel.mesh import Mesh
 
@@ -211,8 +223,9 @@ def apply_shardings(params, shardings: dict):
     mesh = next(iter(flat.values())).mesh
     if mesh.distinct:
         raise NotImplementedError(
-            "placing parameters over several distinct cards needs "
-            "torch.distributed (ROADMAP A14)")
+            "one process places parameters on one card: to train over "
+            "several cards, launch one process per card under torchrun "
+            "(torch.distributed)")
     dev = mesh.device
     if isinstance(params, torch.nn.Module):
         params = params.to(dev)
@@ -229,7 +242,90 @@ def apply_shardings(params, shardings: dict):
                 if name is not None and axes[j] is not None:
                     port[axes[j]] = name
             t.sharding_spec = tuple(port)
+    if mesh.distributed:
+        _distribute(params, mesh)
     return params
+
+
+def _sharded_axes(params) -> set:
+    tensors = (params.parameters() if isinstance(params, torch.nn.Module)
+               else (t for _, t in _flatten(params)))
+    return {a for t in tensors for a in t.sharding_spec if a is not None}
+
+
+def _distribute(params, mesh: Mesh) -> None:
+    """Apply the recorded specs over the ranks (see the module's
+    docstring), in place."""
+    axes = _sharded_axes(params)
+    if not axes:
+        return
+    if not isinstance(params, (LlamaBiForMNTP, T5ForConditionalGeneration)):
+        raise NotImplementedError(
+            f"sharding a {type(params).__name__} over ranks: only an "
+            f"encoder's module (the Llama family's or T5's) shards over "
+            f"ranks; a tree of tensors stays replicated")
+    if "model" in axes:
+        _tensor_parallel(params, mesh)
+    if "data" in axes:
+        _fully_shard(params, mesh)
+
+
+def _fully_shard(module, mesh: Mesh) -> None:
+    if isinstance(module, LlamaBiForMNTP):
+        layers = list(module.layers)
+        methods = ("forward_hidden", "forward_logits")
+    else:
+        layers = [*module.encoder.layers, *module.decoder.layers]
+        methods = ("encode", "forward_logits")
+    specs = {n: p.sharding_spec for n, p in module.named_parameters()}
+    ignored = {p for p in module.parameters() if "data" not in
+               p.sharding_spec}
+
+    def place(p):
+        return Shard(p.sharding_spec.index("data"))
+
+    kw = dict(mesh=mesh.device_mesh["data"], shard_placement_fn=place,
+              ignored_params=ignored)
+    for layer in layers:
+        fully_shard(layer, **kw)
+    fully_shard(module, **kw)
+    # the encoders call these methods, not forward: the root's hooks
+    # must gather its parameters around them
+    for method in methods:
+        register_fsdp_forward_method(module, method)
+    for n, p in module.named_parameters():
+        p.sharding_spec = specs[n]
+
+
+def _tensor_parallel(module: LlamaBiForMNTP, mesh: Mesh) -> None:
+    cfg, n_model = module.config, mesh.shape["model"]
+    if cfg.num_attention_heads % n_model or \
+            cfg.num_key_value_heads % n_model:
+        raise NotImplementedError(
+            f"tensor parallelism over {n_model} ranks splits whole heads: "
+            f"{cfg.num_attention_heads} query and "
+            f"{cfg.num_key_value_heads} kv heads")
+    rank = mesh.coordinate("model")
+    for layer in module.layers:
+        for name in ("wq", "wk", "wv", "wo", "wg", "wu", "wd"):
+            lin = getattr(layer, name)
+            for leaf in ("weight", "bias"):
+                p = getattr(lin, leaf)
+                if p is None:
+                    continue
+                if "model" not in p.sharding_spec:
+                    raise NotImplementedError(
+                        f"{name}.{leaf} {tuple(p.shape)} does not split "
+                        f"over {n_model} ranks")
+                dim = p.sharding_spec.index("model")
+                n = p.shape[dim] // n_model
+                local = p.detach().narrow(dim, rank * n, n).contiguous()
+                new = torch.nn.Parameter(
+                    DTensor.from_local(local, mesh.device_mesh["model"],
+                                       [Shard(dim)], run_check=False),
+                    requires_grad=p.requires_grad)
+                new.sharding_spec = p.sharding_spec
+                setattr(lin, leaf, new)
 
 
 def shard_audit(params, shardings: dict, min_size: int = 2 ** 16) -> dict:

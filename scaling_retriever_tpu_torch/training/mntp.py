@@ -30,9 +30,14 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from scaling_retriever_tpu_torch.models.config import ModelConfig
 from scaling_retriever_tpu_torch.models.llama import LlamaBiForMNTP
+from scaling_retriever_tpu_torch.parallel.collectives import sum_over
+from scaling_retriever_tpu_torch.parallel.mesh import (init_distributed,
+                                                       rank_part)
+from scaling_retriever_tpu_torch.utils.utils import is_first_worker
 
 IGNORE = -100
 
@@ -122,19 +127,29 @@ class MNTPCollator:
         }
 
 
-def mntp_shift_loss(logits: torch.Tensor, labels: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+def mntp_shift_loss(logits: torch.Tensor, labels: torch.Tensor,
+                    group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """CE(logits[:, :-1], labels[:, 1:]) over labels != -100, in float32,
-    and the masked prediction accuracy."""
+    and the masked prediction accuracy. With a process ``group`` the rows
+    are this rank's part of the global batch: the mean is over the group's
+    label tokens (their count all-reduced), and the loss and accuracy are
+    summed over the group (the loss with ``sum_over``, whose backward sums
+    as the reps' gather does)."""
     logits = logits[:, :-1].float()
     labels = labels[:, 1:].long()
     mask = labels != IGNORE
     safe = labels.clamp_min(0)
     logp = torch.log_softmax(logits, dim=-1)
     picked = logp.gather(-1, safe[..., None])[..., 0]
-    denom = mask.sum().clamp_min(1)
+    count = mask.sum()
+    if group is not None:
+        dist.all_reduce(count, group=group)
+    denom = count.clamp_min(1)
     loss = -(picked * mask).sum() / denom
     acc = ((logits.argmax(-1) == safe) & mask).sum() / denom
+    if group is not None:
+        loss = sum_over(loss, group)
+        dist.all_reduce(acc, group=group)
     return loss, acc
 
 
@@ -159,17 +174,25 @@ class MNTPModel:
         return self.params.device
 
     def loss_forward(self, params: LlamaBiForMNTP, lora: Optional[dict],
-                     batch: dict, dropout_seed: Optional[int] = None) -> dict:
+                     batch: dict, dropout_seed: Optional[int] = None,
+                     mesh=None) -> dict:
+        """The shifted masked cross-entropy and accuracy of one batch. On
+        a distributed ``mesh`` each rank runs its rows (the [B, S, V]
+        logits are never gathered) and the token mean is the global
+        batch's."""
         on = lora is not None and self.lora_config is not None
         scale = self.lora_config.scaling if on else 0.0
         drop = self.lora_config.lora_dropout if on else 0.0
         dev = params.device
-        logits = params.forward_logits(
-            torch.as_tensor(batch["input_ids"], device=dev),
-            torch.as_tensor(batch["attention_mask"], device=dev), lora,
-            scale, drop, dropout_seed)
+        ids, mask, labels = (torch.as_tensor(batch[k], device=dev) for k in
+                             ("input_ids", "attention_mask", "labels"))
+        part = rank_part(ids.shape[0], mesh)
+        if part is not None:
+            ids, mask, labels = (t[part.local] for t in (ids, mask, labels))
+        logits = params.forward_logits(ids, mask, lora, scale, drop,
+                                       dropout_seed, part)
         loss, acc = mntp_shift_loss(
-            logits, torch.as_tensor(batch["labels"], device=dev))
+            logits, labels, None if part is None else mesh.group("data"))
         return {"rank": loss, "accuracy": acc}
 
     def save_pretrained(self, save_dir: str) -> None:
@@ -335,8 +358,13 @@ def main(argv=None, tokenizer=None):
 
     if tokenizer is None:
         tokenizer = load_tokenizer(ns.model_name_or_path)
+    joined = dist.is_initialized()
+    # under torchrun: this rank's card (or the CPU); the Trainer's mesh is
+    # then over the ranks and shards each loader batch over them, as the
+    # reference's mesh over its devices
+    device = init_distributed(ns.device)
     dt = torch.bfloat16 if ns.bf16 else torch.float32
-    params, config = load_pretrained(ns.model_name_or_path, device=ns.device,
+    params, config = load_pretrained(ns.model_name_or_path, device=device,
                                      param_dtype=dt, dtype=dt,
                                      remat=REMAT[ns.remat])
     # lora_alpha defaults to 2 * r; the adapter class follows the family
@@ -422,10 +450,14 @@ def main(argv=None, tokenizer=None):
     trainer.save_model(ns.output_dir)
     if eval_fn is not None:
         results = eval_fn(trainer.trainable, trainer.step)
-        os.makedirs(ns.output_dir, exist_ok=True)
-        with open(os.path.join(ns.output_dir, "eval_results.json"), "w") as f:
-            json.dump(results, f, indent=2)
-        print(json.dumps({"final_eval": results}), flush=True)
+        if is_first_worker():
+            os.makedirs(ns.output_dir, exist_ok=True)
+            with open(os.path.join(ns.output_dir, "eval_results.json"),
+                      "w") as f:
+                json.dump(results, f, indent=2)
+            print(json.dumps({"final_eval": results}), flush=True)
+    if not joined and dist.is_initialized():
+        dist.destroy_process_group()
     return trainer
 
 

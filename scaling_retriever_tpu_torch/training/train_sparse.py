@@ -12,6 +12,16 @@ The flags are the reference's, plus ``--device`` (default "cuda"). On one
 card ``--fsdp`` trains replicated, as the reference does on a data axis of
 one. ``--model_type t5`` trains T5Sparse (nce or margin_mse only, no
 ``--remat``, as in the reference) and saves a peft T5 adapter.
+
+Over several cards, launch one process per card (the reference's launcher)::
+
+    torchrun --nproc_per_node 8 -m \
+        scaling_retriever_tpu_torch.training.train_sparse ... [--fsdp]
+
+Each rank trains on ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``:
+gloo on the CPU); the global batch is ``per_device_train_batch_size``
+times the ranks, as the reference's over its devices, and rank 0 writes
+the adapter.
 """
 
 from __future__ import annotations
@@ -27,7 +37,8 @@ from scaling_retriever_tpu_torch.data import datasets as D
 from scaling_retriever_tpu_torch.data.loader import DataLoader
 from scaling_retriever_tpu_torch.models.encoder import (MODEL_REGISTRY,
                                                         load_tokenizer)
-from scaling_retriever_tpu_torch.parallel.mesh import make_mesh
+from scaling_retriever_tpu_torch.parallel.mesh import (init_distributed,
+                                                       make_mesh)
 from scaling_retriever_tpu_torch.training.trainer import (
     REMAT, LLM2RetrieverTrainingArgs, Trainer)
 
@@ -125,7 +136,8 @@ def build_training(argv, pooling: str, tokenizer=None):
         tokenizer, ns.query_max_length, ns.doc_max_length,
         fixed_length=ns.fixed_length)
 
-    mesh = make_mesh(device=ns.device)
+    # under torchrun: this rank's card (or the CPU), the mesh over ranks
+    mesh = make_mesh(device=init_distributed(ns.device))
     global_bs = ns.per_device_train_batch_size * mesh.shape["data"]
     loader = DataLoader(dataset, global_bs, collator, shuffle=True,
                         seed=ns.seed, drop_last=True)
@@ -138,9 +150,12 @@ def build_training(argv, pooling: str, tokenizer=None):
 
 
 def main(argv=None, pooling: str = "sparse", tokenizer=None):
+    joined = torch.distributed.is_initialized()
     trainer, ns = build_training(argv, pooling, tokenizer)
     trainer.train()
     trainer.save_model(ns.output_dir)
+    if not joined and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return trainer
 
 

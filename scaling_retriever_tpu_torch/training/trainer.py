@@ -23,8 +23,18 @@
     ``trainable_shardings`` and applied with
     ``parallel.partitioning.apply_shardings``. A mesh whose entries are
     one device runs the global batch's step there, as the reference's one
-    program over a sharded batch computes it; a mesh over several
-    distinct cards raises (ROADMAP A14).
+    program over a sharded batch computes it; a single process over
+    several distinct cards raises.
+  * launched under ``torchrun`` (a distributed mesh, ``parallel.mesh``),
+    every rank iterates the same global loader and computes the global
+    batch's losses from its own rows (``loss_forward(..., mesh=)`` gathers
+    the reps), so each step equals the reference's one-program step: the
+    trainable's gradients are then all-reduced over ``data`` and divided
+    by its size (FSDP's reduce-scatter already averages what it shards),
+    the tensor-parallel LoRA factors' partial gradients summed over
+    ``model``, and the norm taken over the global gradient (a shard's
+    squares summed over the axes it is split over). Rank 0 alone
+    writes the log, the checkpoints and the artifact, from full tensors.
 """
 
 from __future__ import annotations
@@ -38,15 +48,19 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from scaling_retriever_tpu_torch.models import losses as losses_lib
 from scaling_retriever_tpu_torch.models.llama import fold_in
-from scaling_retriever_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from scaling_retriever_tpu_torch.parallel.mesh import (make_mesh, shard_batch,
+                                                       to_device)
 from scaling_retriever_tpu_torch.parallel.partitioning import (
     apply_shardings, fsdp_shardings, model_parallel_shardings,
     replicated_shardings,
 )
 from scaling_retriever_tpu_torch.utils.profiling import profile_span
+from scaling_retriever_tpu_torch.utils.utils import is_first_worker
 
 STATE_FILE = "trainer_state.pt"
 # the CLIs' --remat → ModelConfig.remat, the reference's values
@@ -95,7 +109,7 @@ class LLM2RetrieverTrainingArgs:
     T: float = 0.01                   # dense temperature
     # runtime
     bf16: bool = False
-    fsdp: bool = False               # one card: replicated training
+    fsdp: bool = False               # FSDP over data (replicated at 1)
     n_data_shards: Optional[int] = None
     loss_scale: float = 1.0
     logging_steps: int = 50
@@ -168,8 +182,24 @@ def tree_leaves(tree) -> list:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor, in float32."""
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+    """sqrt of the sum of squares over every tensor, in float32. A
+    DTensor's squares (an FSDP or a tensor-parallel shard) are summed over
+    each mesh axis it is split over, as ``torch.nn.utils.get_total_norm``
+    does."""
+    plain = [t for t in tensors if not isinstance(t, DTensor)]
+    total = sum((t.float() ** 2).sum() for t in plain)
+    split: dict = {}      # (mesh, the axes it is split over) -> squares
+    for t in tensors:
+        if isinstance(t, DTensor):
+            key = (t.device_mesh, tuple(i for i, p in enumerate(t.placements)
+                                        if p.is_shard()))
+            split[key] = split.get(key, 0.0) + (t.to_local().float()
+                                                ** 2).sum()
+    for (mesh, axes), sq in split.items():
+        for i in axes:
+            dist.all_reduce(sq, group=mesh.get_group(i))
+        total = total + sq
+    return torch.sqrt(total)
 
 
 class Trainer:
@@ -186,11 +216,13 @@ class Trainer:
         # optimizer steps
         self.eval_fn = eval_fn
         self.mesh = mesh if mesh is not None else make_mesh(
-            devices=[encoder.params.device])
+            device=encoder.params.device)
         if self.mesh.distinct:
             raise NotImplementedError(
-                "training over several distinct cards needs "
-                "torch.distributed (ROADMAP A14)")
+                "one process trains on one card: to train over several "
+                "cards, launch one process per card under torchrun "
+                "(torch.distributed), e.g. torchrun --nproc_per_node N -m "
+                "scaling_retriever_tpu_torch.training.train_sparse ...")
         self.step = 0        # optimizer steps completed
         self.micro_step = 0  # loader batches consumed
         self.epoch = 0
@@ -221,7 +253,9 @@ class Trainer:
             self.trainable_shardings = self.param_shardings
         self.params = encoder.params if self.use_lora else None
         self.trainable = encoder.lora if self.use_lora else encoder.params
-        self._leaves = [t for _, t in tree_leaves(self.trainable)]
+        leaves = tree_leaves(self.trainable)
+        self._paths = [path for path, _ in leaves]
+        self._leaves = [t for _, t in leaves]
         for t in self._leaves:
             t.requires_grad_(True)
         self.optimizer = torch.optim.AdamW(
@@ -237,12 +271,13 @@ class Trainer:
         dropout_seed = (fold_in(args.seed, step)
                         if self.use_lora and args.lora_dropout > 0.0
                         else None)
+        kw = {"mesh": self.mesh} if self.mesh.distributed else {}
         if self.use_lora:
             task_losses = self.encoder.loss_forward(
-                self.params, self.trainable, batch, dropout_seed)
+                self.params, self.trainable, batch, dropout_seed, **kw)
         else:
             task_losses = self.encoder.loss_forward(self.trainable, None,
-                                                    batch)
+                                                    batch, **kw)
         total = 0.0
         weighted = {}
         for name, value in task_losses.items():
@@ -263,7 +298,13 @@ class Trainer:
         """One micro step: the loss and its gradients, accumulated; at the
         last micro step of an optimizer step, clip and update."""
         loss, weighted = self._combined_loss(batch, step)
-        grads = torch.autograd.grad(loss, self._leaves)
+        # backward (not autograd.grad): FSDP reduce-scatters into .grad
+        loss.backward(inputs=self._leaves if self.use_lora else None)
+        grads = []
+        for p in self._leaves:
+            grads.append(torch.zeros_like(p) if p.grad is None else p.grad)
+            p.grad = None
+        grads = self._reduce(grads)
         gnorm = global_norm(grads)
         gas = max(self.args.gradient_accumulation_steps, 1)
         mini = (step - 1) % gas
@@ -277,6 +318,35 @@ class Trainer:
             self._acc = None
         metrics = {"loss": loss, "grad_norm": gnorm, **weighted}
         return {k: float(v.detach()) for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def _reduce(self, grads) -> list:
+        """Each rank's gradients → the global batch's, on a distributed
+        mesh (see the module's docstring); as they are otherwise. FSDP's
+        shards come averaged over data; every other gradient (of a
+        tensor-parallel shard: its local part) is all-reduced over data
+        and divided by its size. A LoRA factor of the layers is then
+        summed over ``model``: each rank's projection columns or rows gave
+        a part of it (every other gradient is whole on each model
+        rank)."""
+        if not self.mesh.distributed:
+            return grads
+        n_data = self.mesh.shape["data"]
+        data = self.mesh.group("data")
+        model = (self.mesh.group("model")
+                 if self.use_lora and self.mesh.shape["model"] > 1 else None)
+        for path, g in zip(self._paths, grads):
+            if isinstance(g, DTensor):
+                axes = g.device_mesh.mesh_dim_names
+                if "data" in axes and g.placements[
+                        axes.index("data")].is_shard():
+                    continue                # FSDP's reduce-scatter averaged
+                g = g.to_local()
+            dist.all_reduce(g, group=data)
+            g.div_(n_data)
+            if model is not None and path.startswith("layers."):
+                dist.all_reduce(g, group=model)
+        return grads
 
     @torch.no_grad()
     def _apply(self, grads) -> None:
@@ -331,7 +401,11 @@ class Trainer:
                 if skip_in_epoch > 0:
                     skip_in_epoch -= 1
                     continue
-                batch = shard_batch(batch, self.mesh)
+                # every rank holds the global batch; loss_forward takes
+                # each encoded input's rows of this rank
+                batch = (to_device(batch, self.mesh.device)
+                         if self.mesh.distributed
+                         else shard_batch(batch, self.mesh))
                 # the ramp advances once per micro step
                 self.micro_step += 1
                 with profile_span("train_step"):
@@ -370,6 +444,8 @@ class Trainer:
         return self.epoch >= args.num_train_epochs
 
     def _log(self, metrics: dict, elapsed: float) -> None:
+        if not is_first_worker():
+            return
         entry = {"step": self.step, "elapsed_sec": round(elapsed, 2),
                  **metrics}
         print(json.dumps(entry), flush=True)
@@ -380,30 +456,75 @@ class Trainer:
 
     # -- checkpointing -------------------------------------------------------
 
+    def _barrier(self) -> None:
+        if self.mesh.distributed:
+            dist.barrier()
+
+    @property
+    def _sharded(self) -> bool:
+        """Some trainable leaf is a shard (FSDP's or tensor-parallel,
+        under ``--no_lora``)."""
+        return any(isinstance(t, DTensor) for t in self._leaves)
+
     def save_model(self, out_dir: Optional[str] = None) -> None:
         """The final artifact: a peft adapter, or an HF checkpoint; the
-        encoder picks the format."""
-        self.encoder.save_trained(self.trainable,
-                                  out_dir or self.args.output_dir,
-                                  use_lora=self.use_lora)
+        encoder picks the format. Rank 0 writes it, from full tensors."""
+        trainable = self.trainable
+        if self._sharded:
+            trainable = self._full_module()
+        if is_first_worker():
+            self.encoder.save_trained(trainable,
+                                      out_dir or self.args.output_dir,
+                                      use_lora=self.use_lora)
+        self._barrier()
+
+    def _full_module(self) -> Optional[torch.nn.Module]:
+        """The sharded module's full weights on the host, in a module of
+        their own, on rank 0 (every rank takes part in the gathers; the
+        others get None)."""
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, get_model_state_dict)
+
+        sd = get_model_state_dict(self.trainable, options=StateDictOptions(
+            full_state_dict=True, cpu_offload=True))
+        if not is_first_worker():
+            return None
+        with torch.device("meta"):
+            full = type(self.trainable)(self.trainable.config)
+        if self.trainable.lm_head is None:
+            full.lm_head = None
+        full.load_state_dict(sd, assign=True)
+        return full
 
     def save_checkpoint(self) -> str:
         """Resumable state (counters, trainable, optimizer) in
         ``checkpoint-<step>/trainer_state.pt``, taken at an optimizer-step
-        boundary."""
+        boundary; rank 0 writes it, from full tensors."""
         ckpt_dir = os.path.join(os.path.abspath(self.args.output_dir),
                                 f"checkpoint-{self.step}")
-        os.makedirs(ckpt_dir, exist_ok=True)
-        torch.save({
-            "step": self.step,
-            "micro_step": self.micro_step,
-            "epoch": self.epoch,
-            "micro_in_epoch": self.micro_step - self._epoch_start_micro,
-            "trainable": {k: t.detach().cpu()
-                          for k, t in tree_leaves(self.trainable)},
-            "optimizer": self.optimizer.state_dict(),
-        }, os.path.join(ckpt_dir, STATE_FILE))
-        self._prune_checkpoints()
+        if self._sharded:
+            from torch.distributed.checkpoint.state_dict import (
+                StateDictOptions, get_state_dict)
+
+            trainable, optimizer = get_state_dict(
+                self.trainable, self.optimizer, options=StateDictOptions(
+                    full_state_dict=True, cpu_offload=True))
+        else:
+            trainable = {k: t.detach().cpu()
+                         for k, t in tree_leaves(self.trainable)}
+            optimizer = self.optimizer.state_dict()
+        if is_first_worker():
+            os.makedirs(ckpt_dir, exist_ok=True)
+            torch.save({
+                "step": self.step,
+                "micro_step": self.micro_step,
+                "epoch": self.epoch,
+                "micro_in_epoch": self.micro_step - self._epoch_start_micro,
+                "trainable": trainable,
+                "optimizer": optimizer,
+            }, os.path.join(ckpt_dir, STATE_FILE))
+            self._prune_checkpoints()
+        self._barrier()
         return ckpt_dir
 
     def _prune_checkpoints(self) -> None:
@@ -419,6 +540,8 @@ class Trainer:
 
     @torch.no_grad()
     def load_state(self, ckpt_dir: str) -> None:
+        """Every rank reads the full state; FSDP's shards are cut from it
+        on each rank."""
         state = torch.load(os.path.join(ckpt_dir, STATE_FILE),
                            map_location=self.mesh.device, weights_only=True)
         self.step = int(state["step"])
@@ -428,10 +551,19 @@ class Trainer:
         # re-seek the loader within the epoch; the dropout needs no state:
         # its seed is fold_in(seed, micro_step)
         self._resume_skip_batches = int(state.get("micro_in_epoch", 0))
-        saved = state["trainable"]
-        for k, t in tree_leaves(self.trainable):
-            t.copy_(saved[k])
-        self.optimizer.load_state_dict(state["optimizer"])
+        if self._sharded:
+            from torch.distributed.checkpoint.state_dict import (
+                StateDictOptions, set_state_dict)
+
+            set_state_dict(self.trainable, self.optimizer,
+                           model_state_dict=state["trainable"],
+                           optim_state_dict=state["optimizer"],
+                           options=StateDictOptions(full_state_dict=True))
+        else:
+            saved = state["trainable"]
+            for k, t in tree_leaves(self.trainable):
+                t.copy_(saved[k])
+            self.optimizer.load_state_dict(state["optimizer"])
         self._acc = None
 
 

@@ -14,6 +14,8 @@ them on the first shard's device, in shard order.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -24,6 +26,26 @@ def is_first_worker() -> bool:
 
     return not (dist.is_available() and dist.is_initialized()
                 and dist.get_rank() > 0)
+
+
+def build_dir(default: str) -> str:
+    """Where the port builds its native libraries: ``$SRT_BUILD_DIR/<last
+    part of default>`` when that variable is set; else ``default`` (under
+    the checkout's ``build/``) where it can be written, as in a checkout;
+    else the user's cache (``$XDG_CACHE_HOME`` or ``~/.cache``), as for an
+    install into a directory that cannot be written."""
+    leaf = os.path.basename(os.path.normpath(default))
+    root = os.environ.get("SRT_BUILD_DIR")
+    if root:
+        return os.path.join(root, leaf)
+    probe = default
+    while not os.path.exists(probe):
+        probe = os.path.dirname(probe)
+    if os.access(probe, os.W_OK):
+        return default
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return os.path.join(cache, "scaling_retriever_tpu_torch", leaf)
 
 
 def to_list(x) -> list:

@@ -134,3 +134,14 @@ def test_sharded_slice_modules_are_scanned():
                 "ops/segsort_scoring.py", "ops/sparse_scoring.py",
                 "utils/utils.py", "data/collators.py"):
         assert mod in files, mod
+
+
+def test_distributed_slice_modules_are_scanned():
+    """The modules that train over several ranks are among the files the
+    checks above cover."""
+    files = {os.path.relpath(p, PKG) for p in _port_files()
+             if p.startswith(PKG)}
+    for mod in ("parallel/collectives.py", "parallel/mesh.py",
+                "parallel/partitioning.py", "training/trainer.py",
+                "models/llama.py", "utils/utils.py"):
+        assert mod in files, mod

@@ -494,13 +494,15 @@ def test_fsdp_matches_replicated(start, tmp_path, fsdp):
 
 def test_mesh_is_one_card(start, tmp_path):
     """A mesh's step runs on its first entry; a mesh of repeated entries
-    trains there, one over several distinct cards raises (ROADMAP A14)."""
+    trains there; one process over several distinct cards raises, naming
+    the torchrun launch that trains over them (tests/
+    test_torch_distributed.py drives that path)."""
     mesh = make_mesh(device="cpu")
     assert mesh.shape == {"data": 1, "model": 1}
     b = shard_batch({"x": np.arange(3), "ids": ["a"]}, mesh)
     assert isinstance(b["x"], torch.Tensor) and b["ids"] == ["a"]
     two = make_mesh(devices=["cpu", "cpu"])
     assert two.shape == {"data": 2, "model": 1} and not two.distinct
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="torchrun"):
         Trainer(_fresh(start), _args(tmp_path), ListLoader([]),
                 mesh=make_mesh(devices=["cuda:0", "cuda:1"]))
