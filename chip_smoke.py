@@ -125,7 +125,21 @@ Phases (any failure raises and exits non-zero):
      the recipe's micro batch: losses and factors bit-equal to the
      single-process Trainer's, micro step time and peak memory beside
      its; the process group destroyed after; launch counts read as in 4;
- 11. print the card, per-kernel numbers as one JSON line, and last
+ 11. the power-law index and skewed serving traffic (after the earlier
+     phases' memory is freed): bench_zipf.py's index (8,841,823 docs,
+     1,064,158,464 postings in 13 dyadic bands) made on the card through
+     benches.corpora; bench_serving_zipf.py's server (width rungs 8 to 64,
+     a 32,768-slot tile envelope, reorder horizon 8, ZipfHostLane as the
+     hot lane over 8,192 jobs a query) serving its mix (a pool calibrated
+     to 425,000 matched postings, every 32nd request of a client from the
+     hot pool) for 2 s at each of concurrency 8 and 128: cost splits, hot
+     queries and a mean batch above 1 at 128 are required, and a sample of
+     fast-lane and hot-lane results served after the ladder equals
+     ZipfHostLane and the engine (tie-equal); then 2 maxscore tiles (the
+     4,096-deep prefix, the rescore and its certificate, the doc-major
+     fallback): the certified rows, the results and the scan against the
+     full-CSR segsort; launch counts read as in 4;
+ 12. print the card, per-kernel numbers as one JSON line, and last
      {"ok": true, "device": {...}}.
 """
 
@@ -146,6 +160,10 @@ import time
 import numpy as np
 import torch
 
+from scaling_retriever_tpu_torch.benches import corpora
+from scaling_retriever_tpu_torch.benches.common import (StandInTokenizer,
+                                                        card, sparse_encoder)
+
 N_DOCS = 8_841_823
 K_PER_DOC = 128
 VOCAB = 128_256
@@ -165,8 +183,8 @@ BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 
 # the kernels each serving path (phase 4), offline path (phase 5), dense
 # path (phase 6), checkpoint and training path (phases 7, 8), hybrid and
-# T5 path (phase 9) and sharded path (phase 10a) must launch; topm_dense
-# is B5 at its dense site
+# T5 path (phase 9), sharded path (phase 10a) and power-law path (phase
+# 11) must launch; topm_dense is B5 at its dense site
 PATH_KERNELS = {
     "text q8 + pre-encoded f32": ("fetch_f32", "fetch_q8", "segsum", "topm"),
     "pre-encoded bf16": ("fetch_bf16", "segsum", "topm"),
@@ -188,6 +206,8 @@ PATH_KERNELS = {
     "served sharded": ("fetch_f32", "segsum", "topm"),
     "sharded q8": ("fetch_q8", "segsum", "topm"),
     "sharded bf16": ("fetch_bf16", "segsum", "topm"),
+    "served zipf": ("fetch_f32", "segsum", "topm"),
+    "zipf maxscore": ("fetch_f32", "segsum", "topm"),
 }
 
 
@@ -198,13 +218,6 @@ def log(*a) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
-
-
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -228,37 +241,11 @@ def bound(bytes_moved: float, ops: float,
 
 
 def gen_index(dev):
-    """bench.py's synthetic CSR, on the card: row = hash(i) mod-folded into
-    [0, N_DOCS), every value 1.0. The hash runs in int64 masked to 32 bits
-    (torch's uint32 ops on CUDA are limited). Padded by CHUNK2, so the f32
-    and bf16 engines share the rows. Returns (rows i32, valbits i32, bf16
+    """bench.py's synthetic CSR at this script's sizes, on the card, padded
+    by CHUNK2 so the f32 and bf16 engines share the rows
+    (``benches.corpora.gen_index``). Returns (rows i32, valbits i32, bf16
     pairs i32, packed q8 i32, host offsets, host scales, nnz)."""
-    per_term = (N_DOCS * K_PER_DOC) // VOCAB
-    nnz = per_term * VOCAB
-    n = nnz + CHUNK2
-    rows = torch.full((n,), N_DOCS, dtype=torch.int32, device=dev)
-    pad_word = N_DOCS << 8
-    pad_word -= (1 << 32) if pad_word >= 1 << 31 else 0   # as signed int32
-    packed = torch.full((n,), pad_word, dtype=torch.int32, device=dev)
-    step = 1 << 27
-    for s in range(0, nnz, step):
-        i = torch.arange(s, min(s + step, nnz), dtype=torch.int64, device=dev)
-        h = (i * 2654435761) & 0xFFFFFFFF
-        h = (h ^ (h >> 13)) & 0xFFFFFF
-        r = h % N_DOCS          # = bench.py's h - N_DOCS fold (2^24 < 2N)
-        rows[s:s + len(i)] = r.to(torch.int32)
-        w = (r << 8) | 255                      # code 255 = value 1.0
-        packed[s:s + len(i)] = torch.where(w >= 1 << 31, w - (1 << 32),
-                                           w).to(torch.int32)
-    one = int(np.float32(1.0).view(np.int32))
-    valbits = torch.full((n,), one, dtype=torch.int32, device=dev)
-    valbits[nnz:] = 0
-    pair = int(np.array([0x3F80, 0x3F80], np.uint16).view(np.int32)[0])
-    pairs = torch.full((n // 2,), pair, dtype=torch.int32, device=dev)
-    pairs[nnz // 2:] = 0                    # nnz is even
-    offsets = np.arange(VOCAB + 1, dtype=np.int64) * per_term
-    scales = np.full(VOCAB, np.float32(1.0) / np.float32(255.0), np.float32)
-    return rows, valbits, pairs, packed, offsets, scales, nnz
+    return corpora.gen_index(dev, N_DOCS, K_PER_DOC, VOCAB)
 
 
 def varied_pairs(n_words: int, dev) -> torch.Tensor:
@@ -871,66 +858,6 @@ def profile_tile(label: str, fn, card_s: str) -> None:
             f"x{e.count}" for e in top) + f"; card {card_s}")
 
 
-class StandInTokenizer:
-    """Texts of words "w<id>" → token id = id mod vocab, padded on the left,
-    or on the right with ``padding_side="right"`` as T5 pads (the stand-in
-    for the Llama-3 and T5 tokenizers, whose files are not in the
-    repository). ``tok(texts, length=None)`` pads to ``length`` or to the
-    smallest length rung that holds the batch and returns (ids, mask), as
-    the text frontend calls it; with Hugging Face keywords
-    (``max_length``, ``padding``, ...) it answers that protocol instead,
-    as the data collators call it."""
-
-    pad_token_id = 0
-    bos_token_id = eos_token_id = unk_token_id = mask_token_id = None
-
-    def __init__(self, vocab: int, lengths=(16, 64),
-                 padding_side: str = "left"):
-        self.vocab = vocab
-        self.lengths = tuple(lengths)
-        self.padding_side = padding_side   # "right" for T5
-
-    def convert_tokens_to_ids(self, tokens):
-        """"w<id>" → its id; "_" (MNTP's blank mask token) → the last."""
-        return [self.vocab - 1 if t == "_" else int(t[1:]) % self.vocab
-                for t in tokens]
-
-    def __call__(self, texts, length=None, *, truncation=False,
-                 max_length=None, padding=None, pad_to_multiple_of=None,
-                 return_attention_mask=True, add_special_tokens=None):
-        toks = [[int(w[1:]) % self.vocab for w in t.split()] for t in texts]
-        hf = (max_length is not None or padding is not None
-              or add_special_tokens is not None)
-        if hf and not padding:
-            # unpadded rows, as MNTP's grouping and line-by-line modes ask
-            if truncation and max_length is not None:
-                toks = [t[:max_length] for t in toks]
-            return {"input_ids": toks,
-                    "attention_mask": [[1] * len(t) for t in toks]}
-        if hf:
-            if truncation and max_length is not None:
-                toks = [t[:max_length] for t in toks]
-            length = (max_length if padding == "max_length"
-                      else max(len(t) for t in toks))
-            if pad_to_multiple_of:
-                length = -(-length // pad_to_multiple_of) * pad_to_multiple_of
-        elif length is None:
-            need = max(len(t) for t in toks)
-            length = next(r for r in self.lengths if r >= need)
-        ids = np.zeros((len(texts), length), np.int32)
-        mask = np.zeros((len(texts), length), np.int32)
-        for i, t in enumerate(toks):
-            t = t[:length]
-            at = (slice(0, len(t)) if self.padding_side == "right"
-                  else slice(length - len(t), length))
-            if t:
-                ids[i, at] = t
-                mask[i, at] = 1
-        if hf:
-            return {"input_ids": ids, "attention_mask": mask}
-        return ids, mask
-
-
 def serve_requests(server, reqs):
     """Submit every request, then wait for all: (results, seconds)."""
     t0 = time.perf_counter()
@@ -959,15 +886,8 @@ def check_served(backend, eng, reqs, res, label):
 def make_model(dev, seed: int):
     """The published Llama-3.2-1B architecture as LlamaBiSparse, random
     bf16 weights from ``seed``."""
-    from scaling_retriever_tpu_torch.models.config import (LLAMA_3_2_1B,
-                                                           ModelConfig)
-    from scaling_retriever_tpu_torch.models.encoder import LlamaBiSparse
-    from scaling_retriever_tpu_torch.models.weights import random_params
-
-    cfg = ModelConfig.from_hf_config(LLAMA_3_2_1B, dtype=torch.bfloat16,
-                                     param_dtype=torch.bfloat16)
     t0 = time.perf_counter()
-    model = LlamaBiSparse(random_params(cfg, seed, dev), cfg)
+    model = sparse_encoder(dev, seed)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.params.parameters())
     log(f"encoder: Llama-3.2-1B architecture, {n_params} params bf16, "
@@ -1963,16 +1883,12 @@ CLI_Q = 16
 BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16
 
 
-def corpus_chunks(dev, seed: int, n_rows: int = N_DOCS):
-    """``n_rows`` L2-normalized DENSE_DIM-wide rows made on the card by
-    chunks from a seeded generator and rounded to bf16, so that their f32
-    widening equals the bf16 layout: yields (first row, bf16 [n,
-    DENSE_DIM])."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    for s0 in range(0, n_rows, DENSE_CHUNK):
-        n = min(DENSE_CHUNK, n_rows - s0)
-        v = torch.randn(n, DENSE_DIM, generator=g, device=dev)
-        yield s0, torch.nn.functional.normalize(v, dim=1).bfloat16()
+def corpus_chunks(dev, seed: int, n_rows=None):
+    """``n_rows`` (N_DOCS) DENSE_DIM-wide rows of the dense corpus, made on
+    the card by DENSE_CHUNK-row chunks (``benches.corpora.corpus_chunks``):
+    yields (first row, bf16 [n, DENSE_DIM])."""
+    return corpora.corpus_chunks(dev, seed, N_DOCS if n_rows is None
+                                 else n_rows, DENSE_DIM, DENSE_CHUNK)
 
 
 def empty_dense_index(dev):
@@ -1990,11 +1906,8 @@ def empty_dense_index(dev):
 def dense_corpus(dev, seed: int):
     """The corpus added to a bf16 DenseFlatIndexer as tensors on the card
     (ids = rows): its store is the bf16 layout."""
-    idx = empty_dense_index(dev)
-    for s0, v in corpus_chunks(dev, seed):
-        idx.add_batch(range(s0, s0 + len(v)), v)
-    torch.cuda.synchronize()
-    return idx
+    return corpora.dense_corpus(empty_dense_index(dev),
+                                corpus_chunks(dev, seed))
 
 
 def meminfo_bytes(key: str) -> int:
@@ -4249,6 +4162,91 @@ def t5_phase(dev, seed: int, card_s: str, tmp: str) -> dict:
     return {"t5 trained adapter": launches}
 
 
+# ---- phase 11: the power-law index and skewed serving traffic
+
+ZIPF_CONCURRENCY = (8, 128)
+ZIPF_SECONDS = 2.0
+ZIPF_MS_TILES = 2
+
+
+def zipf_phase(dev, seed: int, card_s: str) -> dict:
+    """Phase 11 (module docstring). Returns the launch counts of the served
+    path and of the maxscore path, each read over exactly that path."""
+    from scaling_retriever_tpu_torch.benches import serving_zipf, zipf
+    from scaling_retriever_tpu_torch.benches.common import (Checks,
+                                                            closed_loop,
+                                                            server_counters)
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+    from scaling_retriever_tpu_torch.serving.server import \
+        ServerOverloadedError
+
+    t_phase = time.perf_counter()
+    corpus = corpora.ZipfCorpus(corpora.ZipfSpec(), dev)
+    engine, backend, server = serving_zipf.zipf_server(corpus)
+    torch.cuda.synchronize()
+    t = corpus.t
+    log(f"zipf index: {t['nnz']} postings over {t['V']} terms, full CSR "
+        f"{(engine.rows_flat.nbytes + engine.valbits_flat.nbytes) / 1e9:.2f}"
+        f" GB on card in {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    cal, hot, alpha = serving_zipf.pools(t, seed)
+    n_warm = serving_zipf.warm(backend, cal + hot, passes=1)
+    log(f"zipf pools ({len(cal)} calibrated, alpha {alpha:.4f}; {len(hot)} "
+        f"hot) and {n_warm} warm tiles in {time.perf_counter() - t0:.1f} s")
+
+    paths = {}
+    # ---- the served path: launch counts cover exactly this block ----
+    cuda_lib.reset_launches()
+    with server:
+        res, _ = closed_loop(
+            server.search, serving_zipf.mix(cal, hot), ZIPF_CONCURRENCY,
+            ZIPF_SECONDS, counters=server_counters(server),
+            shed=(ServerOverloadedError,), seed=seed, label="zipf served, ")
+        served = serving_zipf.serve_sample(server, backend, cal, hot)
+        stats = server.stats()
+    paths["served zipf"] = dict(cuda_lib.LAUNCHES)
+    # ---- end of the served path ----
+    log(f"zipf served: {json.dumps(res)}; server {stats}; card {card_s}")
+    check(sum(r["n_cost_splits"] for r in res.values()) > 0,
+          f"no cost-aware split in the zipf mix: {res}")
+    check(sum(r["n_hot"] for r in res.values()) > 0,
+          f"no query took the hot lane in the zipf mix: {res}")
+    check(res[ZIPF_CONCURRENCY[-1]]["mean_batch"] > 1,
+          f"no batching at concurrency {ZIPF_CONCURRENCY[-1]}: {res}")
+    t0 = time.perf_counter()
+    serving_zipf.check_served(engine, backend.hot_lane, served)
+    log(f"zipf: {len(served)} served results (fast lane and hot lane) == "
+        f"ZipfHostLane and the engine (tie-equal, rtol 1e-5) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    search = zipf.ZipfSearch(corpus, engine.rows_flat, engine.valbits_flat)
+    tiles = corpora.make_queries(t, np.random.default_rng(seed + 11),
+                                 ZIPF_MS_TILES, alpha, zipf.TILE,
+                                 zipf.T_BUDGET, zipf.L0_Q)
+    gb = search.build_maxscore(tiles)
+    torch.cuda.synchronize()
+    # ---- the maxscore path: launch counts cover exactly this block ----
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    ms = [search.ms_tile(qt, qv) for qt, qv in tiles]
+    ms_s = time.perf_counter() - t0
+    paths["zipf maxscore"] = dict(cuda_lib.LAUNCHES)
+    # ---- end of the maxscore path ----
+    checks = Checks()
+    for i, (qt, qv) in enumerate(tiles):
+        search.check_tile(checks, f"zipf maxscore tile {i}", qt, qv)
+    check(checks.ok, f"zipf maxscore: {checks.failed}")
+    log(f"zipf maxscore: {ZIPF_MS_TILES} tiles of {zipf.TILE} in {ms_s:.2f}"
+        f" s, certified {[m[2] for m in ms]}, fell back "
+        f"{[m[3] for m in ms]}; the certified rows, the results and the "
+        f"doc-major scan == the full-CSR segsort (tie-equal, rtol 1e-5); "
+        f"prefix and doc-major {gb} GB; card {card_s}")
+    del engine, backend, server, search
+    free()
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s; card {card_s}")
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4259,7 +4257,7 @@ def main(argv=None) -> int:
         return 1
     from scaling_retriever_tpu_torch.ops import cuda_lib
 
-    card_s = card()
+    card_s = card(torch.device("cuda", 0))
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}; card {card_s}")
 
@@ -4277,7 +4275,7 @@ def main(argv=None) -> int:
 
 
 def run(dev, seed: int, card_s: str) -> list:
-    """Phases 2-9 on ``dev``; returns the per-kernel report entries."""
+    """Phases 2-11 on ``dev``; returns the per-kernel report entries."""
     from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
 
     t0 = time.perf_counter()
@@ -4388,6 +4386,14 @@ def run(dev, seed: int, card_s: str) -> list:
         f"reranker's bi-encoder body, and T5 at google/t5-v1_1-base width "
         f"trained and served through B1, B4 and B5, in "
         f"{time.perf_counter() - t9:.1f} s")
+    free()
+    p11 = zipf_phase(dev, seed, card_s)
+    for path, counts in p11.items():
+        log(f"launches over the {path} path: {counts}")
+    paths.update(p11)
+    log("phase 11: the power-law index served with skewed traffic "
+        "(cost-aware splits, the hot lane) and maxscore, through B1, B4 "
+        "and B5")
     report.append(entry)
     for path, kernels in PATH_KERNELS.items():
         missing = [k_ for k_ in kernels if paths[path][k_] == 0]

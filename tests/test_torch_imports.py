@@ -145,3 +145,16 @@ def test_distributed_slice_modules_are_scanned():
                 "parallel/partitioning.py", "training/trainer.py",
                 "models/llama.py", "utils/utils.py"):
         assert mod in files, mod
+
+
+def test_benches_modules_are_scanned():
+    """The benchmark drivers and their shared modules are among the files
+    the checks above cover."""
+    files = {os.path.relpath(p, PKG) for p in _port_files()
+             if p.startswith(PKG)}
+    for mod in ("benches/__init__.py", "benches/common.py",
+                "benches/corpora.py", "benches/uniform.py",
+                "benches/serving.py", "benches/zipf.py",
+                "benches/serving_zipf.py", "benches/text.py",
+                "benches/dense.py", "benches/serving_dense.py"):
+        assert mod in files, mod
