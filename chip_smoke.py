@@ -160,9 +160,15 @@ import time
 import numpy as np
 import torch
 
+from scaling_retriever_tpu_torch.benches import bmx as bmx_bench
 from scaling_retriever_tpu_torch.benches import corpora
-from scaling_retriever_tpu_torch.benches.common import (StandInTokenizer,
-                                                        card, sparse_encoder)
+from scaling_retriever_tpu_torch.benches.common import (BF16_OPS_PER_S,
+                                                        StandInTokenizer,
+                                                        card, model_flops,
+                                                        sparse_encoder)
+from scaling_retriever_tpu_torch.benches.corpora import (clustered_index,
+                                                         cross_check,
+                                                         make_cfg, make_tiles)
 
 N_DOCS = 8_841_823
 K_PER_DOC = 128
@@ -178,7 +184,6 @@ CHUNK2 = 2048
 BMX_COVER = 4.0               # block-max pass 1 covers BMX_COVER * TOPK docs
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM data sheet, non-tensor f32
-BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 
 
 # the kernels each serving path (phase 4), offline path (phase 5), dense
@@ -265,150 +270,6 @@ def varied_pairs(n_words: int, dev) -> torch.Tensor:
     return out
 
 
-# ---- bench_bmx.py's clustered corpus, in torch (sizes as published there)
-
-
-def make_cfg(C=1024, S=8634, PT=64, L_IN=8192, L_BG=4096,
-             V_G=2000, L_G=40960, n_topic_q=12, n_generic_q=10):
-    """C topic clusters of S docs (plus one cluster-free block), PT topical
-    terms per cluster posting L_IN times inside their cluster at high
-    impact and L_BG times outside at low impact, V_G generic terms posting
-    L_G times corpus-wide at low impact. List lengths are multiples of
-    CHUNK, so no fetch window straddles two lists."""
-    L_T = L_IN + L_BG
-    assert L_T % CHUNK == 0 and L_G % CHUNK == 0, (L_T, L_G)
-    assert S > L_IN
-    cfg = dict(C=C, S=S, N=(C + 1) * S, PT=PT, V_T=C * PT, L_IN=L_IN,
-               L_BG=L_BG, L_T=L_T, V_G=V_G, L_G=L_G, n_topic_q=n_topic_q,
-               n_generic_q=n_generic_q)
-    cfg["T_NNZ"] = cfg["V_T"] * L_T
-    cfg["NNZ"] = cfg["T_NNZ"] + V_G * L_G
-    cfg["V"] = cfg["V_T"] + V_G
-    assert cfg["NNZ"] + CHUNK < 2 ** 31
-    offsets = np.zeros(cfg["V"] + 1, np.int64)
-    offsets[:cfg["V_T"] + 1] = np.arange(cfg["V_T"] + 1, dtype=np.int64) * L_T
-    offsets[cfg["V_T"]:] = (cfg["T_NNZ"]
-                            + np.arange(V_G + 1, dtype=np.int64) * L_G)
-    cfg["offsets"] = offsets
-    return cfg
-
-
-def decode(pp: torch.Tensor, cfg):
-    """Posting index (int64) -> (doc int64, value f32): piecewise-linear
-    ascending doc maps, so every list is doc-sorted by construction.
-    Topical term t of cluster c posts before, inside (high impact) and
-    after [cS, cS+S); generic terms stride over the whole corpus. Values
-    are a regime base plus a period-256 jitter."""
-    C, S, N, PT = cfg["C"], cfg["S"], cfg["N"], cfg["PT"]
-    L_T, L_IN, L_BG, L_G = cfg["L_T"], cfg["L_IN"], cfg["L_BG"], cfg["L_G"]
-    T_NNZ, V_T = cfg["T_NNZ"], cfg["V_T"]
-    topical = pp < T_NNZ
-    ppt = torch.where(topical, pp, 0)
-    t_t = ppt // L_T
-    j_t = ppt % L_T
-    ppg = torch.where(topical, 0, pp - T_NNZ)
-    g = ppg // L_G
-    j_g = ppg % L_G
-    c = t_t // PT
-    cs = c * S
-    ce = cs + S
-    j1 = (L_BG * c) // C
-    j2 = j1 + L_IN
-    th = t_t % 9973
-    bpre = (th * 30011 + t_t * 7) % cs.clamp_min(1)
-    bin_ = (th * 48271 + t_t) % L_IN
-    lp = L_BG - j1
-    rp = N - ce
-    bpost = (th * 69621 + t_t * 13) % rp.clamp_min(1)
-    j1m = j1.clamp_min(1)
-    jp = torch.minimum(j_t, (j1 - 1).clamp_min(0))
-    d_pre = jp * (cs // j1m) + (jp * (cs % j1m) + bpre) // j1m
-    ji = (j_t - j1).clamp(0, L_IN - 1)
-    d_in = cs + ji * (S // L_IN) + (ji * (S % L_IN) + bin_) // L_IN
-    lpm = lp.clamp_min(1)
-    jj = torch.minimum((j_t - j2).clamp_min(0), (lp - 1).clamp_min(0))
-    d_post = ce + jj * (rp // lpm) + (jj * (rp % lpm) + bpost) // lpm
-    d_top = torch.where(j_t < j1, d_pre, torch.where(j_t < j2, d_in, d_post))
-    in_regime = topical & (j_t >= j1) & (j_t < j2)
-    bg = ((g + 3) * 1013904) % N
-    d_gen = j_g * (N // L_G) + (j_g * (N % L_G) + bg) // L_G
-    doc = torch.where(topical, d_top, d_gen)
-    term = torch.where(topical, t_t, V_T + g)
-    j = torch.where(topical, j_t, j_g)
-    jit8 = ((j * 13 + term * 37) % 256).to(torch.float32)
-    f32 = dict(dtype=torch.float32, device=pp.device)
-    base = torch.where(topical, torch.where(in_regime, torch.tensor(0.8, **f32),
-                                            torch.tensor(0.05, **f32)),
-                       torch.tensor(0.1, **f32))
-    scale = torch.where(topical, torch.where(in_regime,
-                                             torch.tensor(0.4, **f32),
-                                             torch.tensor(0.2, **f32)),
-                        torch.tensor(0.3, **f32))
-    val = base + scale * (jit8 * torch.tensor(1.0 / 256.0, **f32))
-    return doc, val
-
-
-def gen_device_csr(cfg, dev):
-    """Flat CSR on the card by arithmetic: rows int32 (the N sentinel past
-    nnz, padded by CHUNK), f32 value bits as int32."""
-    NNZ, N = cfg["NNZ"], cfg["N"]
-    rows = torch.full((NNZ + CHUNK,), N, dtype=torch.int32, device=dev)
-    bits = torch.zeros(NNZ + CHUNK, dtype=torch.int32, device=dev)
-    step = 1 << 26
-    for s in range(0, NNZ, step):
-        pp = torch.arange(s, min(s + step, NNZ), dtype=torch.int64, device=dev)
-        doc, val = decode(pp, cfg)
-        rows[s:s + len(pp)] = doc.to(torch.int32)
-        bits[s:s + len(pp)] = val.view(torch.int32)
-    return rows, bits
-
-
-def make_tiles(cfg, rng, n_tiles, tile=TILE, t_budget=32):
-    """SPLADE-shaped query tiles: n_topic_q high-weight terms from one
-    cluster plus n_generic_q low-weight expansion terms."""
-    nt, ng = cfg["n_topic_q"], cfg["n_generic_q"]
-    tiles = []
-    for _ in range(n_tiles):
-        qt = np.zeros((tile, t_budget), np.int32)
-        qv = np.zeros((tile, t_budget), np.float32)
-        for i in range(tile):
-            c = rng.integers(cfg["C"])
-            tt = c * cfg["PT"] + rng.choice(cfg["PT"], nt, replace=False)
-            gg = cfg["V_T"] + rng.choice(cfg["V_G"], ng, replace=False)
-            qt[i, :nt + ng] = np.concatenate([tt, gg])
-            qv[i, :nt] = rng.uniform(0.7, 1.3, nt)
-            qv[i, nt:nt + ng] = rng.uniform(0.2, 0.5, ng)
-        tiles.append((qt, qv))
-    return tiles
-
-
-def cross_check(s_a, r_a, s_b, r_b, atol=2e-4):
-    """bench_bmx.py's exactness test: scores allclose; rows equal except
-    where the score gap is inside the tolerance (another summation order
-    and sort). Returns the share of identical rows."""
-    np.testing.assert_allclose(s_a, s_b, atol=atol, rtol=atol)
-    neq = r_a != r_b
-    if neq.any():
-        check(float(np.abs(s_a[neq] - s_b[neq]).max()) < atol,
-              "rows differ outside the tie tolerance")
-    return float((~neq).mean())
-
-
-def clustered_index(dev, cfg):
-    """The clustered corpus on the card, its block-max meta (computed from
-    the card's tensors) and the unpruned engine over it. Returns (csr,
-    meta, base engine)."""
-    from scaling_retriever_tpu_torch.ops.blockmax import build_chunk_meta
-    from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
-
-    rows, bits = gen_device_csr(cfg, dev)
-    meta = build_chunk_meta(cfg["offsets"], rows, bits.view(torch.float32))
-    csr = (rows, bits, cfg["offsets"], cfg["N"])
-    base = SegsortEngine(topk=TOPK, query_terms_budget=32,
-                         device_csr=csr)
-    return csr, meta, base
-
-
 def make_bmx(csr, meta, cfg, **kw):
     from scaling_retriever_tpu_torch.ops.blockmax import BlockMaxSegsortEngine
 
@@ -418,28 +279,10 @@ def make_bmx(csr, meta, cfg, **kw):
 
 
 def run_stream(eng, tiles, staged: bool):
-    """All tiles through ``eng`` (staged_pipeline(d1=2, d2=2) for the
-    two-pass engine, depth2_pipeline otherwise), ending in a host read.
-    Returns (scores, rows) concatenated."""
-    from scaling_retriever_tpu_torch.utils.utils import (depth2_pipeline,
-                                                         staged_pipeline)
-
-    out_s, out_r = [], []
-
-    def dispatch(t):
-        return eng.retrieve_tile_async(None, TOPK, sparsified=t)
-
-    def drain(p):
-        s, r = eng.finalize(p)
-        out_s.append(s)
-        out_r.append(r)
-
-    if staged:
-        staged_pipeline(tiles, dispatch, eng.continue_async, drain, d1=2,
-                        d2=2)
-    else:
-        depth2_pipeline(tiles, dispatch, drain)
-    return np.concatenate(out_s), np.concatenate(out_r)
+    """All tiles through ``eng`` at TOPK (``benches.bmx.run_stream``: the
+    staged pipeline for the two-pass engine, depth 2 otherwise), ending in
+    a host read. Returns (scores, rows) concatenated."""
+    return bmx_bench.run_stream(eng, tiles, TOPK, staged)[:2]
 
 
 def query_tiles(rng, n):
@@ -1880,7 +1723,6 @@ SERVED_Q = 128
 DOC_TEXTS = 2_048
 CLI_DENSE_DOCS = 65_536
 CLI_Q = 16
-BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16
 
 
 def corpus_chunks(dev, seed: int, n_rows=None):
@@ -3111,22 +2953,6 @@ def step_times():
         tm.Trainer._train_step = orig
 
 
-def model_flops(cfg, groups, lm_head: bool, remat: bool) -> float:
-    """Model FLOPs of one micro step over ``groups`` of (rows, tokens):
-    the layers' projections and attention products, and the LM head, each
-    forward and backward to the activations (the base is frozen; the LoRA
-    factors' own products, under 1%, are left out); full remat runs the
-    layers' forward once more."""
-    h, q, kv, i = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim,
-                   cfg.intermediate_size)
-    layers = head = 0
-    for rows, seq in groups:
-        layers += 2 * rows * seq * cfg.num_hidden_layers * (
-            2 * h * q + 2 * h * kv + 3 * h * i + 2 * seq * q)
-        head += 2 * rows * seq * cfg.vocab_size * h if lm_head else 0
-    return layers * (3 if remat else 2) + head * 2
-
-
 def read_log(out: str) -> list:
     with open(os.path.join(out, "trainer_log.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -4295,7 +4121,7 @@ def run(dev, seed: int, card_s: str) -> list:
 
     t0 = time.perf_counter()
     cfg = make_cfg()
-    csr, meta, base = clustered_index(dev, cfg)
+    csr, meta, base = clustered_index(dev, cfg, TOPK)
     bmx_tiles = make_tiles(cfg, np.random.default_rng(seed), 14)
     log(f"clustered index: {cfg['NNZ']} postings, {cfg['N']} docs in "
         f"{cfg['C']} clusters, on card with block-max meta "

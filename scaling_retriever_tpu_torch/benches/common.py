@@ -2,7 +2,8 @@
 one-line emitter, the correctness record, the depth-2 timing loop, the
 closed-loop client ladder (the loop ``bench_serving.py`` ``run_ladder``,
 ``bench_text.py`` and ``bench_serving_zipf.py`` each repeat), the stand-in
-tokenizer and the random Llama-3.2-1B-architecture sparse encoder."""
+tokenizer, the random Llama-3.2-1B-architecture sparse encoder, and the
+model FLOPs of a training micro step beside the card's dense bf16 peak."""
 
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import numpy as np
 import torch
 
 from scaling_retriever_tpu_torch.utils.utils import depth2_pipeline
+
+BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 
 
 def log(*a) -> None:
@@ -47,12 +50,16 @@ def device(name: str) -> torch.device:
     return dev
 
 
-def parser(doc: str) -> argparse.ArgumentParser:
+def parser(doc: str, topk: Optional[int] = None) -> argparse.ArgumentParser:
+    """The drivers' flags; ``topk`` adds ``--topk`` with that default."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the JSON line to this file")
+    if topk is not None:
+        ap.add_argument("--topk", type=int, default=topk,
+                        help="results per query")
     return ap
 
 
@@ -296,3 +303,19 @@ def sparse_encoder(dev: torch.device, seed: int, overrides=None):
                                      dtype=torch.bfloat16,
                                      param_dtype=torch.bfloat16)
     return LlamaBiSparse(random_params(cfg, seed, dev), cfg)
+
+
+def model_flops(cfg, groups, lm_head: bool, remat: bool) -> float:
+    """Model FLOPs of one micro step over ``groups`` of (rows, tokens):
+    the layers' projections and attention products, and the LM head, each
+    forward and backward to the activations (the base is frozen; the LoRA
+    factors' own products, under 1%, are left out); full remat runs the
+    layers' forward once more."""
+    h, q, kv, i = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim,
+                   cfg.intermediate_size)
+    layers = head = 0
+    for rows, seq in groups:
+        layers += 2 * rows * seq * cfg.num_hidden_layers * (
+            2 * h * q + 2 * h * kv + 3 * h * i + 2 * seq * q)
+        head += 2 * rows * seq * cfg.vocab_size * h if lm_head else 0
+    return layers * (3 if remat else 2) + head * 2

@@ -16,6 +16,9 @@ a seed (nothing is read from disk or downloaded).
   JAX to 64 bits around it); g(j) is a host table of the C library's
   single-precision ``powf``, the power the reference evaluates, so every
   array is bit-identical to the reference generator's on any device.
+* The clustered corpus of ``bench_bmx.py`` (doc-reordered topic clusters
+  with doc-sorted lists, values a regime base plus a period-256 jitter),
+  its query tiles, its exactness test and its block-max index.
 * The dense corpus: L2-normalized bf16 rows from a seeded generator, by
   chunks, on the device.
 """
@@ -300,12 +303,14 @@ def calibrate_alpha(t: dict, target_matched: float, l0_q: int) -> float:
     return (lo + hi) / 2
 
 
-def job_need(qt, qv, offsets, lens_arr) -> np.ndarray:
+def job_need(qt, qv, offsets, lens_arr, chunk: int = CHUNK) -> np.ndarray:
     """Per-query DMA job need [nq] of query terms/weights [nq, T] over a
-    CSR with these offsets and list lengths."""
+    CSR with these offsets and list lengths, in jobs of ``chunk``
+    postings aligned to ``chunk`` (CHUNK == ALIGN for the f32 and q8
+    layouts, CHUNK2 for the bf16 pairs)."""
     lens = lens_arr[qt] * (qv > 0)
-    heads = offsets[qt] % ALIGN
-    return np.sum(-(-(heads + lens) // CHUNK) * (lens > 0), axis=1)
+    heads = offsets[qt] % chunk
+    return np.sum(-(-(heads + lens) // chunk) * (lens > 0), axis=1)
 
 
 def jobs_for(tiles, offsets, lens_arr) -> int:
@@ -351,6 +356,156 @@ class ZipfHostLane:
         top = np.argpartition(-scores, k - 1)[:k]
         order = top[np.argsort(-scores[top], kind="stable")]
         return order.astype(np.int64), scores[order].astype(np.float32)
+
+
+# ---- bench_bmx.py's clustered corpus ------------------------------------
+
+
+def make_cfg(C=1024, S=8634, PT=64, L_IN=8192, L_BG=4096,
+             V_G=2000, L_G=40960, n_topic_q=12, n_generic_q=10):
+    """bench_bmx.py's construction (its defaults are the published sizes):
+    C topic clusters of S docs (plus one cluster-free block), PT topical
+    terms per cluster posting L_IN times inside their cluster at high
+    impact and L_BG times outside at low impact, V_G generic terms posting
+    L_G times corpus-wide at low impact. List lengths are multiples of
+    ALIGN, so no fetch window straddles two lists."""
+    L_T = L_IN + L_BG
+    assert L_T % ALIGN == 0 and L_G % ALIGN == 0, (L_T, L_G)
+    assert S > L_IN
+    cfg = dict(C=C, S=S, N=(C + 1) * S, PT=PT, V_T=C * PT, L_IN=L_IN,
+               L_BG=L_BG, L_T=L_T, V_G=V_G, L_G=L_G, n_topic_q=n_topic_q,
+               n_generic_q=n_generic_q)
+    cfg["T_NNZ"] = cfg["V_T"] * L_T
+    cfg["NNZ"] = cfg["T_NNZ"] + V_G * L_G
+    cfg["V"] = cfg["V_T"] + V_G
+    assert cfg["NNZ"] + CHUNK < 2 ** 31
+    offsets = np.zeros(cfg["V"] + 1, np.int64)
+    offsets[:cfg["V_T"] + 1] = np.arange(cfg["V_T"] + 1, dtype=np.int64) * L_T
+    offsets[cfg["V_T"]:] = (cfg["T_NNZ"]
+                            + np.arange(V_G + 1, dtype=np.int64) * L_G)
+    cfg["offsets"] = offsets
+    return cfg
+
+
+def decode(pp: torch.Tensor, cfg):
+    """Posting index (int64) -> (doc int64, value f32): piecewise-linear
+    ascending doc maps, so every list is doc-sorted by construction.
+    Topical term t of cluster c posts before, inside (high impact) and
+    after [cS, cS+S); generic terms stride over the whole corpus. Values
+    are a regime base plus a period-256 jitter. bench_bmx.decode's
+    formulas, whose int32 products never overflow, so int64 gives the
+    same integers."""
+    C, S, N, PT = cfg["C"], cfg["S"], cfg["N"], cfg["PT"]
+    L_T, L_IN, L_BG, L_G = cfg["L_T"], cfg["L_IN"], cfg["L_BG"], cfg["L_G"]
+    T_NNZ, V_T = cfg["T_NNZ"], cfg["V_T"]
+    topical = pp < T_NNZ
+    ppt = torch.where(topical, pp, 0)
+    t_t = ppt // L_T
+    j_t = ppt % L_T
+    ppg = torch.where(topical, 0, pp - T_NNZ)
+    g = ppg // L_G
+    j_g = ppg % L_G
+    c = t_t // PT
+    cs = c * S
+    ce = cs + S
+    j1 = (L_BG * c) // C
+    j2 = j1 + L_IN
+    th = t_t % 9973
+    bpre = (th * 30011 + t_t * 7) % cs.clamp_min(1)
+    bin_ = (th * 48271 + t_t) % L_IN
+    lp = L_BG - j1
+    rp = N - ce
+    bpost = (th * 69621 + t_t * 13) % rp.clamp_min(1)
+    j1m = j1.clamp_min(1)
+    jp = torch.minimum(j_t, (j1 - 1).clamp_min(0))
+    d_pre = jp * (cs // j1m) + (jp * (cs % j1m) + bpre) // j1m
+    ji = (j_t - j1).clamp(0, L_IN - 1)
+    d_in = cs + ji * (S // L_IN) + (ji * (S % L_IN) + bin_) // L_IN
+    lpm = lp.clamp_min(1)
+    jj = torch.minimum((j_t - j2).clamp_min(0), (lp - 1).clamp_min(0))
+    d_post = ce + jj * (rp // lpm) + (jj * (rp % lpm) + bpost) // lpm
+    d_top = torch.where(j_t < j1, d_pre, torch.where(j_t < j2, d_in, d_post))
+    in_regime = topical & (j_t >= j1) & (j_t < j2)
+    bg = ((g + 3) * 1013904) % N
+    d_gen = j_g * (N // L_G) + (j_g * (N % L_G) + bg) // L_G
+    doc = torch.where(topical, d_top, d_gen)
+    term = torch.where(topical, t_t, V_T + g)
+    j = torch.where(topical, j_t, j_g)
+    jit8 = ((j * 13 + term * 37) % 256).to(torch.float32)
+    f32 = dict(dtype=torch.float32, device=pp.device)
+    base = torch.where(topical,
+                       torch.where(in_regime, torch.tensor(0.8, **f32),
+                                   torch.tensor(0.05, **f32)),
+                       torch.tensor(0.1, **f32))
+    scale = torch.where(topical, torch.where(in_regime,
+                                             torch.tensor(0.4, **f32),
+                                             torch.tensor(0.2, **f32)),
+                        torch.tensor(0.3, **f32))
+    val = base + scale * (jit8 * torch.tensor(1.0 / 256.0, **f32))
+    return doc, val
+
+
+def gen_device_csr(cfg, dev):
+    """Flat CSR on the device by arithmetic: rows int32 (the N sentinel
+    past nnz, padded by CHUNK), f32 value bits as int32."""
+    NNZ, N = cfg["NNZ"], cfg["N"]
+    step = 1 << 26
+    rows = torch.full((NNZ + CHUNK,), N, dtype=torch.int32, device=dev)
+    bits = torch.zeros(NNZ + CHUNK, dtype=torch.int32, device=dev)
+    for s in range(0, NNZ, step):
+        pp = torch.arange(s, min(s + step, NNZ), dtype=torch.int64, device=dev)
+        doc, val = decode(pp, cfg)
+        rows[s:s + len(pp)] = doc.to(torch.int32)
+        bits[s:s + len(pp)] = val.view(torch.int32)
+    return rows, bits
+
+
+def make_tiles(cfg, rng, n_tiles, tile: int = 64, t_budget: int = 32):
+    """SPLADE-shaped query tiles: n_topic_q high-weight terms from one
+    cluster plus n_generic_q low-weight expansion terms
+    (bench_bmx.make_tiles, the same draws)."""
+    nt, ng = cfg["n_topic_q"], cfg["n_generic_q"]
+    tiles = []
+    for _ in range(n_tiles):
+        qt = np.zeros((tile, t_budget), np.int32)
+        qv = np.zeros((tile, t_budget), np.float32)
+        for i in range(tile):
+            c = rng.integers(cfg["C"])
+            tt = c * cfg["PT"] + rng.choice(cfg["PT"], nt, replace=False)
+            gg = cfg["V_T"] + rng.choice(cfg["V_G"], ng, replace=False)
+            qt[i, :nt + ng] = np.concatenate([tt, gg])
+            qv[i, :nt] = rng.uniform(0.7, 1.3, nt)
+            qv[i, nt:nt + ng] = rng.uniform(0.2, 0.5, ng)
+        tiles.append((qt, qv))
+    return tiles
+
+
+def cross_check(s_a, r_a, s_b, r_b, atol: float = 2e-4) -> float:
+    """bench_bmx.py's exactness test: scores allclose; rows equal except
+    where the score gap is inside the tolerance (another summation order
+    and sort). Raises AssertionError; returns the share of identical
+    rows."""
+    np.testing.assert_allclose(s_a, s_b, atol=atol, rtol=atol)
+    neq = r_a != r_b
+    if neq.any():
+        gap = float(np.abs(s_a[neq] - s_b[neq]).max())
+        assert gap < atol, f"rows differ outside the tie tolerance ({gap})"
+    return float((~neq).mean())
+
+
+def clustered_index(dev, cfg, topk: int = 1000, t_budget: int = 32):
+    """The clustered corpus on the device, its block-max meta (computed
+    from the device's tensors) and the unpruned engine over it. Returns
+    (csr, meta, base engine)."""
+    from scaling_retriever_tpu_torch.ops.blockmax import build_chunk_meta
+    from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
+
+    rows, bits = gen_device_csr(cfg, dev)
+    meta = build_chunk_meta(cfg["offsets"], rows, bits.view(torch.float32))
+    csr = (rows, bits, cfg["offsets"], cfg["N"])
+    base = SegsortEngine(topk=topk, query_terms_budget=t_budget,
+                         device_csr=csr)
+    return csr, meta, base
 
 
 # ---- the dense corpus ----------------------------------------------------

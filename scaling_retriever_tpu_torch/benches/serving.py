@@ -4,7 +4,8 @@ port's counterpart of ``bench_serving.py``).
     python3 -m scaling_retriever_tpu_torch.benches.serving [--device cpu]
 
 bench.py's uniform index (made on the device) behind a ``SegsortEngine``,
-a ``SparseTileBackend`` (width rungs 8 and 64, 64-term budget, top-1000)
+a ``SparseTileBackend`` (width rungs 8 and 64, 64-term budget, top-1000
+or ``--topk``)
 and a ``RetrievalServer`` (2 ms window, pipeline depth 2). At each
 concurrency C of 1, 8, 64, 128 and 256, C client threads keep one
 pre-encoded 48-term query in flight for 8 s, drawn from a pool of 2,048;
@@ -50,18 +51,18 @@ def query_pool(rng, n: int) -> list:
             for _ in range(n)]
 
 
-def check_served(engine, samples) -> None:
+def check_served(engine, samples, topk: int) -> None:
     """Each served (query, result) equals the engine's own tile over that
     query (tie-equal, rtol 1e-5)."""
     for q, (ids, scores) in samples:
         assert len(ids) > 0 and np.isfinite(scores).all(), "empty result"
-        tie_equal_topk(*common.engine_topk(engine, q, TOPK), ids, scores,
+        tie_equal_topk(*common.engine_topk(engine, q, topk), ids, scores,
                        rtol=1e-5)
 
 
 def ladder(name: str, engine, pool, args, checks) -> dict:
     backend = SparseTileBackend(engine, None, N_DOCS, widths=WIDTHS,
-                                t_budget=T_BUDGET, topk=TOPK)
+                                t_budget=T_BUDGET, topk=args.topk)
     server = RetrievalServer(backend, max_wait_ms=2.0,
                              pipeline_depth=PIPE_DEPTH)
     warm = server.warmup(pool[:max(WIDTHS)], passes=4)
@@ -76,13 +77,13 @@ def ladder(name: str, engine, pool, args, checks) -> dict:
     common.log(f"[{name}] server worker seconds by stage: {stage_s}")
     sample = [s for kept in samples.values() for s in kept][:SAMPLE]
     checks.run(f"{name}: served results == direct engine calls",
-               lambda: check_served(engine, sample))
+               lambda: check_served(engine, sample, args.topk))
     return {"best_qps": max(r["qps"] for r in res.values()),
             "stage_s": stage_s, "by_concurrency": res}
 
 
 def main(argv=None) -> int:
-    args = common.parser(__doc__).parse_args(argv)
+    args = common.parser(__doc__, topk=TOPK).parse_args(argv)
     dev = common.device(args.device)
     card_s = common.card(dev)
     common.log(f"device {dev}, card {card_s}, torch {torch.__version__}")
@@ -92,12 +93,12 @@ def main(argv=None) -> int:
     rows, offsets, nnz = corpora.uniform_rows(dev, N_DOCS, K, VOCAB)
     valbits = corpora.uniform_valbits(nnz, rows.shape[0], dev)
     pool = query_pool(np.random.default_rng(args.seed), POOL)
-    engine = SegsortEngine(topk=TOPK, query_terms_budget=T_BUDGET,
+    engine = SegsortEngine(topk=args.topk, query_terms_budget=T_BUDGET,
                            device_csr=(rows, valbits, offsets, N_DOCS))
     arms = {"f32": ladder("f32", engine, pool, args, checks)}
     del engine, valbits
     corpora.q8_words(rows, nnz, N_DOCS, out=rows)
-    engine = SegsortEngine(topk=TOPK, query_terms_budget=T_BUDGET,
+    engine = SegsortEngine(topk=args.topk, query_terms_budget=T_BUDGET,
                            val_dtype="q8",
                            device_csr=(rows, corpora.q8_scales(VOCAB),
                                        offsets, N_DOCS))
@@ -110,7 +111,7 @@ def main(argv=None) -> int:
         "value": best[lead],
         "unit": (f"queries/sec through RetrievalServer, closed loop "
                  f"({N_DOCS} docs, {nnz} uniform postings, {L0_Q}-term "
-                 f"pre-encoded queries, top-{TOPK}, widths {WIDTHS}, "
+                 f"pre-encoded queries, top-{args.topk}, widths {WIDTHS}, "
                  f"{SECONDS} s windows, one card, best of the "
                  f"concurrency ladder, {lead} layout)"),
         "card": card_s, "device": str(dev),

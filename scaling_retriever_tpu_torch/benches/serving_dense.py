@@ -47,18 +47,18 @@ SECONDS = 8.0
 SAMPLE = 8
 
 
-def direct(idx, vec: np.ndarray):
+def direct(idx, vec: np.ndarray, topk: int):
     """The exact direct search of one query on the index's layout."""
     q = torch.as_tensor(vec[None]).to(idx.device, torch.float32)
     q, qs = (_quantize_queries_int8(q) if idx.quantize == "int8"
              else (q.to(idx.dtype), None))
-    s, r = _search_chunked(idx._materialize(), q, TOPK, idx.chunk,
+    s, r = _search_chunked(idx._materialize(), q, topk, idx.chunk,
                            doc_scales=idx._layout[2], q_scale=qs)
     return r[0].cpu().numpy(), s[0].cpu().numpy()
 
 
 def ladder(name: str, idx, pool, args, checks) -> dict:
-    backend = DenseTileBackend(idx, width=WIDTHS[-1], topk=TOPK,
+    backend = DenseTileBackend(idx, width=WIDTHS[-1], topk=args.topk,
                                widths=WIDTHS)
     server = RetrievalServer(backend, max_wait_ms=2.0, pipeline_depth=2,
                              max_pipeline_depth=3)
@@ -76,8 +76,9 @@ def ladder(name: str, idx, pool, args, checks) -> dict:
 
     def same():
         for q, (ids, scores) in sample:
-            assert len(ids) == TOPK and np.isfinite(scores).all()
-            tie_equal_topk(*direct(idx, q), ids, scores, rtol=1e-5)
+            assert len(ids) == args.topk and np.isfinite(scores).all()
+            tie_equal_topk(*direct(idx, q, args.topk), ids, scores,
+                           rtol=1e-5)
 
     checks.run(f"{name}: served results == the direct search", same)
     common.log(f"[{name}] certificate fallbacks {idx.fallbacks}")
@@ -87,7 +88,7 @@ def ladder(name: str, idx, pool, args, checks) -> dict:
 
 
 def main(argv=None) -> int:
-    args = common.parser(__doc__).parse_args(argv)
+    args = common.parser(__doc__, topk=TOPK).parse_args(argv)
     dev = common.device(args.device)
     card_s = common.card(dev)
     common.log(f"device {dev}, card {card_s}, torch {torch.__version__}")
@@ -116,7 +117,7 @@ def main(argv=None) -> int:
         "metric": "dense_serving_qps",
         "value": best[lead],
         "unit": (f"queries/sec through RetrievalServer, closed loop "
-                 f"({N_DOCS} docs x {D}, exact inner product top-{TOPK}, "
+                 f"({N_DOCS} docs x {D}, exact inner product top-{args.topk}, "
                  f"widths {WIDTHS}, {SECONDS} s windows, one card, "
                  f"best of the concurrency ladder, {lead} layout)"),
         "card": card_s, "device": str(dev),

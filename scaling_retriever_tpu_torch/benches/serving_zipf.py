@@ -139,7 +139,7 @@ def serve_sample(server, backend, cal, hot, n_fast=CHECK_FAST,
 
 
 def main(argv=None) -> int:
-    args = common.parser(__doc__).parse_args(argv)
+    args = common.parser(__doc__, topk=TOPK).parse_args(argv)
     dev = common.device(args.device)
     card_s = common.card(dev)
     common.log(f"device {dev}, card {card_s}, torch {torch.__version__}")
@@ -148,7 +148,7 @@ def main(argv=None) -> int:
 
     corpus = corpora.ZipfCorpus(SPEC, dev)
     t = corpus.t
-    engine, backend, server = zipf_server(corpus)
+    engine, backend, server = zipf_server(corpus, args.topk)
     cal, hot, alpha = pools(t, args.seed)
     needs = np.array([backend.request_cost(q) for q in cal])
     hot_needs = np.array([backend.request_cost(q) for q in hot])
@@ -175,7 +175,7 @@ def main(argv=None) -> int:
                                                       hot)))
     checks.run("fast-lane and hot-lane results == ZipfHostLane and the "
                "engine", lambda: check_served(engine, backend.hot_lane,
-                                              served))
+                                              served, args.topk))
     best = max(r["qps"] for r in res.values())
     return common.emit({
         "metric": "serving_qps_zipf",
@@ -183,9 +183,9 @@ def main(argv=None) -> int:
         "unit": (f"queries/sec through RetrievalServer, closed loop "
                  f"({SPEC.n_docs} docs, {t['nnz']} power-law postings, "
                  f"queries calibrated to {TARGET_MATCHED:.0f} matched "
-                 f"postings plus 1 in {HOT_EVERY} hot, top-{TOPK}, widths "
-                 f"{WIDTHS}, {SECONDS} s windows, one card, best of the "
-                 f"concurrency ladder)"),
+                 f"postings plus 1 in {HOT_EVERY} hot, top-{args.topk}, "
+                 f"widths {WIDTHS}, {SECONDS} s windows, one card, best of "
+                 f"the concurrency ladder)"),
         "card": card_s, "device": str(dev),
         "arms": {"f32": {"best_qps": best, "stage_s": stage_s,
                          "by_concurrency": res}},

@@ -92,7 +92,7 @@ class RecordingEncode:
 
 def run_arm(name, engine, model, tok, texts, args, checks) -> dict:
     backend = SparseTileBackend(engine, None, N_DOCS, widths=WIDTHS,
-                                t_budget=T_SPARSE, topk=TOPK)
+                                t_budget=T_SPARSE, topk=args.topk)
     server = RetrievalServer(backend, max_wait_ms=2.0, pipeline_depth=2)
     encode = RecordingEncode(make_encode_fn_handoff(model, T_SPARSE))
     fe = QueryEncoderFrontend(server, encode, tok, widths=WIDTHS,
@@ -129,8 +129,8 @@ def run_arm(name, engine, model, tok, texts, args, checks) -> dict:
         for t, (ids, scores) in served:
             q = encode.rep(recorded, [int(w[1:]) % VOCAB for w in t.split()])
             assert len(ids) > 0 and np.isfinite(scores).all(), "empty result"
-            tie_equal_topk(*common.engine_topk(engine, q, TOPK), ids, scores,
-                           rtol=1e-5)
+            tie_equal_topk(*common.engine_topk(engine, q, args.topk), ids,
+                           scores, rtol=1e-5)
 
     checks.run(f"{name}: served texts == direct engine calls on their "
                f"reps", same)
@@ -141,7 +141,7 @@ def run_arm(name, engine, model, tok, texts, args, checks) -> dict:
 
 
 def main(argv=None) -> int:
-    args = common.parser(__doc__).parse_args(argv)
+    args = common.parser(__doc__, topk=TOPK).parse_args(argv)
     dev = common.device(args.device)
     card_s = common.card(dev)
     common.log(f"device {dev}, card {card_s}, torch {torch.__version__}")
@@ -159,12 +159,12 @@ def main(argv=None) -> int:
     texts = [" ".join(rng.choice(bank, size=Q_WORDS))
              for _ in range(POOL + SAMPLE)]
 
-    engine = SegsortEngine(topk=TOPK, query_terms_budget=T_SPARSE,
+    engine = SegsortEngine(topk=args.topk, query_terms_budget=T_SPARSE,
                            device_csr=(rows, valbits, offsets, N_DOCS))
     arms = {"f32": run_arm("f32", engine, model, tok, texts, args, checks)}
     del engine, valbits
     corpora.q8_words(rows, nnz, N_DOCS, out=rows)
-    engine = SegsortEngine(topk=TOPK, query_terms_budget=T_SPARSE,
+    engine = SegsortEngine(topk=args.topk, query_terms_budget=T_SPARSE,
                            val_dtype="q8",
                            device_csr=(rows, corpora.q8_scales(VOCAB),
                                        offsets, N_DOCS))
@@ -178,7 +178,7 @@ def main(argv=None) -> int:
         "value": best[lead],
         "unit": (f"text queries/sec end to end (tokenize, encode with "
                  f"{cfg.num_hidden_layers} layers x {cfg.hidden_size} bf16, "
-                 f"top-{T_SPARSE} handoff, top-{TOPK} retrieval over "
+                 f"top-{T_SPARSE} handoff, top-{args.topk} retrieval over "
                  f"{N_DOCS} docs / {nnz} postings), closed loop, "
                  f"{SECONDS} s windows, one card, best of the "
                  f"concurrency ladder, {lead} layout)"),

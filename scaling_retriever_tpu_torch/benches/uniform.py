@@ -55,25 +55,26 @@ def query_tiles(rng, n: int) -> list:
 
 def run_arm(name: str, dispatch, tiles, dev) -> dict:
     """Warm, then N_PASSES timed passes over tiles[1:]; returns the arm's
-    numbers and its full result on tiles[1] for the cross-arm check."""
-    def drain(out):
-        out[0].cpu()
-        out[1].cpu()
+    numbers and, under "out", the last pass's results on the host, one
+    (scores, rows) a tile, for the cross-arm checks."""
+    out: list = []
 
-    drain(dispatch(tiles[0]))
-    for _ in range(3):
+    def drain(res):
+        out.append((res[0].cpu().numpy(), res[1].cpu().numpy()))
+
+    for _ in range(4):
         drain(dispatch(tiles[0]))
-    n_q = TILE * (len(tiles) - 1)
+    n_q = sum(len(t[0]) for t in tiles[1:])
     pass_qps = []
     for p in range(N_PASSES):
+        out.clear()
         dt = common.timed(tiles[1:], dispatch, drain, dev)
         pass_qps.append(n_q / dt)
         common.log(f"{name} pass {p}: {n_q} queries in {dt:.3f} s -> "
                    f"{pass_qps[-1]:.1f} QPS ({dt / (len(tiles) - 1) * 1e3:.2f}"
-                   f" ms per {TILE}-query tile)")
-    s, r, _ = dispatch(tiles[1])
+                   f" ms per {len(tiles[1][0])}-query tile)")
     return {"qps": float(np.median(pass_qps)), "pass_qps": pass_qps,
-            "first": (s.cpu().numpy(), r.cpu().numpy())}
+            "out": list(out)}
 
 
 def main(argv=None) -> int:
@@ -123,7 +124,8 @@ def main(argv=None) -> int:
 
     arms["q8"] = run_arm("q8", q8, q8_tiles, dev)
 
-    (s_a, r_a), (s_b, r_b) = arms["f32"].pop("first"), arms["q8"].pop("first")
+    s_a, r_a = arms["f32"].pop("out")[0]
+    s_b, r_b = arms["q8"].pop("out")[0]
 
     def same_arms():
         np.testing.assert_allclose(s_a, s_b, rtol=2e-5, atol=2e-5)

@@ -351,8 +351,9 @@ def test_staged_driver_equals_collapsed_finalize(clustered):
 
 
 def test_chip_smoke_clustered_corpus_matches_bench_bmx():
-    """chip_smoke.py keeps a torch copy of bench_bmx.py's clustered corpus
-    (it may import neither JAX nor the JAX package): the same offsets,
+    """benches/corpora.py keeps a torch copy of bench_bmx.py's clustered
+    corpus, which chip_smoke.py imports (neither may import JAX nor the
+    JAX package): the same offsets,
     postings bit for bit and query tiles at a small configuration, meta
     from its tensors within bench_bmx's closed-form bound, and the
     block-max engine over that device_csr equal to the unpruned engine
@@ -364,21 +365,24 @@ def test_chip_smoke_clustered_corpus_matches_bench_bmx():
     sys.path.insert(0, root)
     import bench_bmx
     import chip_smoke
+    from scaling_retriever_tpu_torch.benches import corpora
+
+    assert chip_smoke.make_cfg is corpora.make_cfg
 
     kw = dict(C=32, S=2560, PT=8, L_IN=2048, L_BG=1024, V_G=64, L_G=8192,
               n_topic_q=4, n_generic_q=4)
-    cfg = chip_smoke.make_cfg(**kw)
+    cfg = corpora.make_cfg(**kw)
     want = bench_bmx.make_cfg(**kw, k=50)
     np.testing.assert_array_equal(cfg["offsets"], want["offsets"])
     p = np.arange(cfg["NNZ"], dtype=np.int64)
     doc, val, _, _ = bench_bmx.decode(np, p, want)
-    rows, bits = chip_smoke.gen_device_csr(cfg, torch.device("cpu"))
+    rows, bits = corpora.gen_device_csr(cfg, torch.device("cpu"))
     np.testing.assert_array_equal(rows[:cfg["NNZ"]].numpy(), doc)
     np.testing.assert_array_equal(
         bits[:cfg["NNZ"]].view(torch.float32).numpy(), val)
     assert (rows[cfg["NNZ"]:] == cfg["N"]).all()
-    for a, b in zip(chip_smoke.make_tiles(cfg, np.random.default_rng(0), 2,
-                                          tile=8, t_budget=16),
+    for a, b in zip(corpora.make_tiles(cfg, np.random.default_rng(0), 2,
+                                       tile=8, t_budget=16),
                     bench_bmx.make_tiles(want, np.random.default_rng(0), 2,
                                          tile=8, t_budget=16)):
         np.testing.assert_array_equal(a[0], b[0])
@@ -394,8 +398,8 @@ def test_chip_smoke_clustered_corpus_matches_bench_bmx():
     base = SegsortEngine(topk=50, query_terms_budget=16, device_csr=csr)
     bmx = port.BlockMaxSegsortEngine(None, topk=50, query_terms_budget=16,
                                      meta=meta, device_csr=csr)
-    tiles = chip_smoke.make_tiles(cfg, np.random.default_rng(0), 2, tile=8,
-                                  t_budget=16)
+    tiles = corpora.make_tiles(cfg, np.random.default_rng(0), 2, tile=8,
+                               t_budget=16)
     out = {}
     for name, eng, staged in (("base", base, False), ("bmx", bmx, True)):
         res = []
@@ -411,6 +415,6 @@ def test_chip_smoke_clustered_corpus_matches_bench_bmx():
         else:
             depth2_pipeline(tiles, dispatch, drain)
         out[name] = [np.concatenate(x) for x in zip(*res)]
-    chip_smoke.cross_check(*out["bmx"], *out["base"])
+    corpora.cross_check(*out["bmx"], *out["base"])
     st = bmx.stats()
     assert st["pruned_tiles"] > 0 and st["mean_kept_frac"] < 0.6, st

@@ -156,5 +156,7 @@ def test_benches_modules_are_scanned():
                 "benches/corpora.py", "benches/uniform.py",
                 "benches/serving.py", "benches/zipf.py",
                 "benches/serving_zipf.py", "benches/text.py",
-                "benches/dense.py", "benches/serving_dense.py"):
+                "benches/dense.py", "benches/serving_dense.py",
+                "benches/bf16.py", "benches/bmx.py", "benches/indexing.py",
+                "benches/train.py", "benches/mntp.py"):
         assert mod in files, mod

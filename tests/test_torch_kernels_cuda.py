@@ -237,6 +237,40 @@ def test_topm_kernel_limits(cuda):
         assert torch.equal(v, pv) and torch.equal(i, pi)
 
 
+def test_topm_kernel_at_a_top10_tile(cuda):
+    """B5 at the m a top-10 tile hands it: the engine's rank tail at k 10
+    over a 64-query slab of 512 jobs (the uniform index's tile, dyadic
+    contributions so that B4 is exact), B5 held bit-equal to its plain
+    version on the slab it is given, and the tile's top-10 equal to the
+    plain path's."""
+    seen = []
+
+    def topm_checked(s, m, block):
+        got = topm.block_topm(s, m, block)
+        want = topm.block_topm_plain(s, m, block)
+        seen.append((m, block, torch.equal(got[0], want[0])
+                     and torch.equal(got[1], want[1])))
+        return got
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    n_docs, P = 8_841_823, 512 * fetch.CHUNK
+    rows = torch.randint(0, n_docs, (64, P), device=cuda, generator=g,
+                         dtype=torch.int32)
+    rows[:, -5000:] = n_docs                          # unused slots
+    contrib = torch.randint(1, 32, (64, P), device=cuda, generator=g) / 16.0
+    before = cuda_lib.LAUNCHES["topm"]
+    got = ss._finish(*ss._rank_tail_async(
+        rows, contrib, n_docs, 10, 64, ss.KERNELS._replace(
+            topm=topm_checked)), 10)
+    want = ss._finish(*ss._rank_tail_async(rows, contrib, n_docs, 10, 64,
+                                           ss.PLAIN), 10)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["topm"] == before + 1
+    assert len(seen) == 1 and seen[0][2], seen
+    assert seen[0][:2] == (32, 4096)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_segsort_kernels_match_plain_path(cuda):
     """The engine's kernel path against the plain path and a CPU engine,
     on a small real-valued index."""
