@@ -1,0 +1,7 @@
+"""The stream's retrievals against their bandwidth bound."""
+
+from retrieval_bench import readers
+
+
+def read(rec):
+    return readers.retrieval_roofline(rec)
