@@ -1,0 +1,9 @@
+"""% of the traced text-serving window in which the device is idle while
+one of the port's ``encoder.*`` spans is open."""
+
+from retrieval_bench.metrics import program_spans
+
+
+def read(rec):
+    return program_spans.idle_share(
+        rec, lambda name: name.startswith("encoder."))

@@ -33,6 +33,7 @@ from scaling_retriever_tpu_torch.ops.pooling import dense_pool, sparse_pool
 from scaling_retriever_tpu_torch.parallel.collectives import (Part,
                                                              gather_rows)
 from scaling_retriever_tpu_torch.parallel.mesh import rank_part
+from scaling_retriever_tpu_torch.utils.profiling import profile_span
 
 
 def _resolve_model_dir(name_or_path: str) -> str:
@@ -101,10 +102,13 @@ class LLM2Retriever:
         if self.POOLING == "sparse":
             logits = params.forward_logits(input_ids, attention_mask, lora,
                                            scale, drop, dropout_seed, part)
-            return sparse_pool(logits, attention_mask, self.config.hidden_size)
+            with profile_span("encoder.pool"):
+                return sparse_pool(logits, attention_mask,
+                                   self.config.hidden_size)
         hidden = params.forward_hidden(input_ids, attention_mask, lora, scale,
                                        drop, dropout_seed, part)
-        return dense_pool(hidden, attention_mask)
+        with profile_span("encoder.pool"):
+            return dense_pool(hidden, attention_mask)
 
     def loss_forward(self, params: LlamaBiForMNTP, lora: Optional[dict],
                      batch: dict, dropout_seed: Optional[int] = None,
@@ -173,8 +177,9 @@ class LLM2Retriever:
     def encode(self, input_ids, attention_mask) -> torch.Tensor:
         """ids and mask (numpy or tensors) → f32 reps on the model's
         device."""
-        ids = torch.as_tensor(input_ids, device=self.device)
-        mask = torch.as_tensor(attention_mask, device=self.device)
+        with profile_span("encoder.upload"):
+            ids = torch.as_tensor(input_ids, device=self.device)
+            mask = torch.as_tensor(attention_mask, device=self.device)
         return self.encode_pure(self.params, self.lora, ids, mask)
 
     def doc_encode(self, input_ids, attention_mask) -> torch.Tensor:

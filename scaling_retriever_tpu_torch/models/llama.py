@@ -48,6 +48,7 @@ from scaling_retriever_tpu_torch.models.config import ModelConfig
 from scaling_retriever_tpu_torch.parallel.collectives import (Part,
                                                              from_model,
                                                              to_model)
+from scaling_retriever_tpu_torch.utils.profiling import profile_span
 
 MASK_VALUE = -1e9
 _M64 = (1 << 64) - 1
@@ -369,21 +370,23 @@ class LlamaBiForMNTP(nn.Module):
         """[B, S] ids and mask → final-norm hidden states [B, S, H]. Layers
         are rematerialized per ``config.remat`` only while autograd
         records. ``part``: this rank's place in a training step over
-        several ranks."""
+        several ranks. The span ``encoder.layers`` covers the embedding,
+        the layers and the final norm."""
         cfg = self.config
-        h = self.embed_tokens(input_ids.long()).to(cfg.dtype)
-        bias = padding_bias(attention_mask)
-        cos, sin = rope_cos_sin(cfg, input_ids.shape[1], h.device)
         use_dropout = (lora is not None and lora_dropout > 0.0
                        and dropout_seed is not None)
         remat = cfg.remat if torch.is_grad_enabled() else False
-        for i, layer in enumerate(self.layers):
-            h = _run_layer(layer, remat, h, bias, cos, sin, cfg,
-                           _layer_lora(lora, i), lora_scale,
-                           lora_dropout if use_dropout else 0.0,
-                           fold_in(dropout_seed, i) if use_dropout else None,
-                           part)
-        return rms_norm(h, self.final_norm, cfg.rms_norm_eps)
+        with profile_span("encoder.layers"):
+            h = self.embed_tokens(input_ids.long()).to(cfg.dtype)
+            bias = padding_bias(attention_mask)
+            cos, sin = rope_cos_sin(cfg, input_ids.shape[1], h.device)
+            for i, layer in enumerate(self.layers):
+                h = _run_layer(layer, remat, h, bias, cos, sin, cfg,
+                               _layer_lora(lora, i), lora_scale,
+                               lora_dropout if use_dropout else 0.0,
+                               fold_in(dropout_seed, i) if use_dropout
+                               else None, part)
+            return rms_norm(h, self.final_norm, cfg.rms_norm_eps)
 
     def forward_logits(self, input_ids: torch.Tensor,
                        attention_mask: torch.Tensor,
@@ -398,7 +401,8 @@ class LlamaBiForMNTP(nn.Module):
                              "embeddings, weights without an lm_head)")
         h = self.forward_hidden(input_ids, attention_mask, lora, lora_scale,
                                 lora_dropout, dropout_seed, part)
-        if self.lm_head is None:
-            return F.linear(h, self.embed_tokens.weight.to(h.dtype))
-        head_lora = None if lora is None else lora.get("lm_head")
-        return dense(h, self.lm_head, head_lora, lora_scale)
+        with profile_span("encoder.head"):
+            if self.lm_head is None:
+                return F.linear(h, self.embed_tokens.weight.to(h.dtype))
+            head_lora = None if lora is None else lora.get("lm_head")
+            return dense(h, self.lm_head, head_lora, lora_scale)

@@ -245,7 +245,7 @@ class MaxScoreEngine:
         bound = (self.u_arr[q_terms] * q_vals * (q_vals > 0)).sum(1)
         # the top-C partials, with the prefix pass's certificate resolved
         ps, pr = _finish(*self._seg.retrieve_tile_async(
-            None, self.C, sparsified=(q_terms, q_vals)))
+            None, self.C, sparsified=(q_terms, q_vals))[:4])
         dev = self.device
         scores, rows, ok = rescore_candidates(
             self.doc_terms, self.doc_vals, ps, pr,

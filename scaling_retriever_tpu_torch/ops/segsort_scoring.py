@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import functools
 import sys
+import threading
 from collections import namedtuple
 from typing import Optional
 
@@ -55,6 +56,7 @@ from scaling_retriever_tpu_torch.ops.segsum import (
 )
 from scaling_retriever_tpu_torch.ops.topm import block_topm, block_topm_plain
 from scaling_retriever_tpu_torch.parallel.mesh import local_devices
+from scaling_retriever_tpu_torch.utils.profiling import profile_span
 from scaling_retriever_tpu_torch.utils.utils import force_materialized
 
 # fetch_bmx is B1 at its block-max call site (ops/blockmax.py): the same
@@ -288,14 +290,28 @@ def _rank_tail_async(rows: torch.Tensor, contrib: torch.Tensor,
     return top_scores, srow.gather(1, top_idx), None
 
 
+def _certified(fallback) -> bool:
+    """Whether a ``_rank_tail_async`` result stands as merged: one small
+    device->host read of the blocked certificate, where there is one."""
+    if fallback is None:
+        return True
+    with profile_span("engine.certify"):
+        return bool(fallback[0].all())
+
+
+def _full_topk(fallback, k: int):
+    """The full top-k over the slab, for a tile whose certificate failed."""
+    _, score, srow = fallback
+    with profile_span("engine.fallback"):
+        scores, idx = torch.topk(score, k)
+        return scores, srow.gather(1, idx)
+
+
 def _finish(scores, rows, fallback, k: int):
     """Resolve a ``_rank_tail_async`` result: the full top-k over the slab
-    where the blocked certificate failed (one small device->host read)."""
-    if fallback is not None:
-        ok, score, srow = fallback
-        if not bool(ok.all()):
-            scores, idx = torch.topk(score, k)
-            rows = srow.gather(1, idx)
+    where the blocked certificate failed."""
+    if not _certified(fallback):
+        scores, rows = _full_topk(fallback, k)
     return scores, rows
 
 
@@ -405,15 +421,16 @@ def _packed_handoff_tail(flat, valbits_flat, offsets, q_terms, q_vals,
     return buf, fb
 
 
-def _resolve_handoff(buf: torch.Tensor, k: int, fallback) -> torch.Tensor:
-    if fallback is not None:
-        ok, score, srow = fallback
-        if not bool(ok.all()):
-            s, idx = torch.topk(score, k)
-            buf = buf.clone()
-            buf[:, :k] = s.view(torch.int32)
-            buf[:, k:2 * k] = srow.gather(1, idx)
-    return buf
+def _resolve_handoff(buf: torch.Tensor, k: int, fallback) -> tuple:
+    """(the packed buffer with the full top-k where the certificate
+    failed, whether it held)."""
+    if _certified(fallback):
+        return buf, True
+    s, r = _full_topk(fallback, k)
+    buf = buf.clone()
+    buf[:, :k] = s.view(torch.int32)
+    buf[:, k:2 * k] = r
+    return buf, False
 
 
 def segsort_retrieve_dma_packed(rows_flat, valbits_flat, offsets, q_terms,
@@ -426,7 +443,7 @@ def segsort_retrieve_dma_packed(rows_flat, valbits_flat, offsets, q_terms,
     were truncated; the caller re-routes them."""
     buf, fb = _packed_handoff_tail(rows_flat, valbits_flat, offsets, q_terms,
                                    q_vals, k, jobs_per_query, n_docs, ops)
-    return _resolve_handoff(buf, k, fb)
+    return _resolve_handoff(buf, k, fb)[0]
 
 
 def segsort_retrieve_dma_packed_q8(packed_flat, scales_dev, offsets,
@@ -438,7 +455,7 @@ def segsort_retrieve_dma_packed_q8(packed_flat, scales_dev, offsets,
     q_vals = q_vals * scales_dev[q_terms.long()]
     buf, fb = _packed_handoff_tail(packed_flat, None, offsets, q_terms,
                                    q_vals, k, jobs_per_query, n_docs, ops)
-    return _resolve_handoff(buf, k, fb)
+    return _resolve_handoff(buf, k, fb)[0]
 
 
 def _pack_score_rows(scores: torch.Tensor, rows: torch.Tensor,
@@ -545,6 +562,13 @@ class SegsortEngine:
     bf16 and q8 exist only on the DMA path, so they force it. A host index is laid out on ``device``
     by torch ops there, bit-identical to ``pack_values_bf16`` and
     ``pack_postings_q8``.
+
+    ``stats()`` counts what the reads saw: ``tiles``,
+    ``cert_fallback_tiles`` (the full top-k ran), ``jobs_real`` (the jobs
+    the tiles' real rows need, a truncated row's capped at the bucket) and
+    ``jobs_slab`` (rows times jobs a query of each DMA tile, padded rows
+    included), from numbers the host already holds. Each read's own are
+    the attrs of its ``engine.copy_out`` span.
     """
 
     def __init__(self, index=None, topk: int = 1000,
@@ -573,6 +597,9 @@ class SegsortEngine:
         self._chunk = CHUNK2 if val_dtype == "bf16" else CHUNK
         self._host_scales = None
         self._scales_dev = None
+        self._counts = dict.fromkeys(
+            ("tiles", "cert_fallback_tiles", "jobs_real", "jobs_slab"), 0)
+        self._counts_lock = threading.Lock()
         if device_csr is not None:
             flat, second, offsets, n_docs = device_csr
             self.device = flat.device
@@ -648,6 +675,23 @@ class SegsortEngine:
         heads = starts % c
         return np.sum(-(-(heads + lens) // c) * (lens > 0), axis=1)
 
+    def stats(self) -> dict:
+        with self._counts_lock:
+            return dict(self._counts)
+
+    def _count(self, certified: bool, rows: int, jobs: int,
+               jobs_real: int) -> dict:
+        """Add one read's tile to the counts; returns its own."""
+        tile = {"rows": rows, "jobs": jobs, "jobs_real": jobs_real,
+                "jobs_slab": rows * jobs, "cert_fallback": not certified}
+        with self._counts_lock:
+            c = self._counts
+            c["tiles"] += 1
+            c["cert_fallback_tiles"] += not certified
+            c["jobs_real"] += jobs_real
+            c["jobs_slab"] += rows * jobs
+        return tile
+
     def _scales_on_device(self) -> torch.Tensor:
         if self._scales_dev is None:
             self._scales_dev = torch.from_numpy(self._host_scales).to(
@@ -677,61 +721,83 @@ class SegsortEngine:
             p_budget = self.min_budget
             while p_budget < need:
                 p_budget *= 2
-            s, r, _ = segsort_retrieve(
-                self.packed, self.offsets,
-                torch.from_numpy(q_terms).to(self.device),
-                torch.from_numpy(q_vals).to(self.device), k, p_budget,
-                self.n_docs, self.ops)
-            return s, r, None, k
-        jobs = bucket_jobs(int(self.job_need(q_terms, q_vals).max(initial=0)))
-        if self.val_dtype == "q8":
-            # exact fold: the device scores plain qw' * code
-            q_vals = q_vals * self._host_scales[q_terms]
-        qt = torch.from_numpy(q_terms).to(self.device)
-        qv = torch.from_numpy(q_vals).to(self.device)
-        s, r, fb, _, _, _ = _retrieve_async(
-            self.val_dtype, self.rows_flat, self.valbits_flat, self.offsets,
-            qt, qv, k, jobs, self.n_docs, self.ops)
-        return s, r, fb, k
+            with profile_span("engine.launch"):
+                s, r, _ = segsort_retrieve(
+                    self.packed, self.offsets,
+                    torch.from_numpy(q_terms).to(self.device),
+                    torch.from_numpy(q_vals).to(self.device), k, p_budget,
+                    self.n_docs, self.ops)
+            return s, r, None, k, 0, 0
+        with profile_span("engine.plan"):
+            need = self.job_need(q_terms, q_vals)
+            jobs = bucket_jobs(int(need.max(initial=0)))
+            if self.val_dtype == "q8":
+                # exact fold: the device scores plain qw' * code
+                q_vals = q_vals * self._host_scales[q_terms]
+            qt = torch.from_numpy(q_terms).to(self.device)
+            qv = torch.from_numpy(q_vals).to(self.device)
+        with profile_span("engine.launch"):
+            s, r, fb, _, _, _ = _retrieve_async(
+                self.val_dtype, self.rows_flat, self.valbits_flat,
+                self.offsets, qt, qv, k, jobs, self.n_docs, self.ops)
+        return s, r, fb, k, int(need.sum()), jobs
 
     def finalize(self, payload) -> tuple[np.ndarray, np.ndarray]:
         """Resolve and read back a ``retrieve_tile_async`` payload."""
-        scores, rows, fallback, k = payload
-        scores, rows = _finish(scores, rows, fallback, k)
-        buf = _pack_score_rows(scores, rows, 2 * k).cpu().numpy()
+        scores, rows, fallback, k, jobs_real, jobs = payload
+        with profile_span("engine.read"):
+            certified = _certified(fallback)
+            if not certified:
+                scores, rows = _full_topk(fallback, k)
+            with profile_span("engine.copy_out") as sp:
+                buf = _pack_score_rows(scores, rows, 2 * k).cpu().numpy()
+                sp.attrs.update(self._count(certified, buf.shape[0], jobs,
+                                            jobs_real))
         return buf[:, :k].copy().view(np.float32), buf[:, k:2 * k]
 
     def retrieve_tile_handoff_async(self, q_terms_dev, q_vals_dev,
                                     jobs_per_query: int,
-                                    topk: Optional[int] = None):
+                                    topk: Optional[int] = None,
+                                    n_real: Optional[int] = None):
         """Dispatch a device-resident query tile (terms int32 / vals f32
         [nq, T], e.g. the encoder's top-T) at a caller-chosen standing job
         bucket, with no host read or upload. ``finalize_handoff`` reads the
         packed result; rows whose need exceeded the bucket were truncated
         and must be re-routed by the caller (the text frontend does). f32
-        and q8 layouts only, as in the reference."""
+        and q8 layouts only, as in the reference. ``n_real``: the tile's
+        leading rows that are queries (all by default); the rest pad it
+        and count in ``jobs_slab`` only."""
         if self.val_dtype == "bf16":
             raise ValueError("the device handoff rides the f32/q8 layouts")
         if self.fetch != "dma":
             raise ValueError("the device handoff needs fetch='dma'")
         k = min(topk or self.topk, self.n_docs)
-        if self.val_dtype == "q8":
-            q_vals_dev = q_vals_dev * self._scales_on_device()[
-                q_terms_dev.long()]
-        buf, fb = _packed_handoff_tail(
-            self.rows_flat, self.valbits_flat, self.offsets, q_terms_dev,
-            q_vals_dev, k, jobs_per_query, self.n_docs, self.ops)
-        return buf, k, fb
+        with profile_span("engine.launch"):
+            if self.val_dtype == "q8":
+                q_vals_dev = q_vals_dev * self._scales_on_device()[
+                    q_terms_dev.long()]
+            buf, fb = _packed_handoff_tail(
+                self.rows_flat, self.valbits_flat, self.offsets, q_terms_dev,
+                q_vals_dev, k, jobs_per_query, self.n_docs, self.ops)
+        n = q_terms_dev.shape[0]
+        return buf, k, fb, self, n if n_real is None else n_real, \
+            jobs_per_query
 
     @staticmethod
     def finalize_handoff(payload) -> tuple[np.ndarray, np.ndarray,
                                            np.ndarray]:
         """One read of a handoff payload → (scores [nq, k], rows [nq, k],
-        need [nq])."""
-        buf, k, fallback = payload
-        buf = _resolve_handoff(buf, k, fallback).cpu().numpy()
-        return buf[:, :k].copy().view(np.float32), buf[:, k:2 * k], \
-            buf[:, 2 * k]
+        need [nq]); counted by the engine that dispatched it."""
+        buf, k, fallback, engine, n_real, jobs = payload
+        with profile_span("engine.read"):
+            buf, certified = _resolve_handoff(buf, k, fallback)
+            with profile_span("engine.copy_out") as sp:
+                buf = buf.cpu().numpy()
+                need = buf[:, 2 * k]
+                sp.attrs.update(engine._count(
+                    certified, buf.shape[0], jobs,
+                    int(np.minimum(need[:n_real], jobs).sum())))
+        return buf[:, :k].copy().view(np.float32), buf[:, k:2 * k], need
 
 
 class ShardedSegsortEngine:

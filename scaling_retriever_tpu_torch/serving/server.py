@@ -32,6 +32,7 @@ dispatch with result drain:
 
 from __future__ import annotations
 
+import collections
 import json
 import queue
 import threading
@@ -42,6 +43,8 @@ from typing import Optional, Sequence
 import numpy as np
 
 from scaling_retriever_tpu_torch.ops.segsort_scoring import bucket_jobs
+
+LATENCY_WINDOW = 65536
 
 
 class SparseTileBackend:
@@ -273,9 +276,10 @@ class RetrievalServer:
         # (and head the next tile), never dropped
         self._stash: list = []
         self.n_batches = 0
-        self.batch_sizes: list[int] = []
-        self.latencies_s: list[float] = []      # fast lane
-        self.hot_latencies_s: list[float] = []  # host slow lane
+        # the most recent tiles' sizes and the two lanes' latencies
+        self.batch_sizes = collections.deque(maxlen=LATENCY_WINDOW)
+        self.latencies_s = collections.deque(maxlen=LATENCY_WINDOW)
+        self.hot_latencies_s = collections.deque(maxlen=LATENCY_WINDOW)
         # wall-clock split of the worker loop: "wait" = queue idle,
         # "collect" = batch formation, "dispatch" = pack + engine dispatch,
         # "drain" = read + result conversion + future resolution
@@ -428,7 +432,7 @@ class RetrievalServer:
         with self._lock:
             lat = np.asarray(self.latencies_s, np.float64)
             hot_lat = np.asarray(self.hot_latencies_s, np.float64)
-            sizes = self.batch_sizes[:]
+            sizes = list(self.batch_sizes)
             hot_inflight = self._hot_inflight
         out = {"n_requests": self.n_requests, "n_batches": self.n_batches,
                "n_hot": self.n_hot, "n_hot_shed": self.n_hot_shed,
@@ -439,6 +443,10 @@ class RetrievalServer:
                "t_budget": self.backend.t_budget,
                "widenings": getattr(self.backend, "widenings", 0),
                "stage_s": {k: round(v, 3) for k, v in self.stage_s.items()}}
+        engine_stats = getattr(getattr(self.backend, "engine", None),
+                               "stats", None)
+        if engine_stats is not None:
+            out["engine"] = engine_stats()
         if lat.size:
             out.update({
                 "latency_p50_ms": round(float(np.percentile(lat, 50)) * 1e3, 2),

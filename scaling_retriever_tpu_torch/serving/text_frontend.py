@@ -16,10 +16,22 @@ sparsification run on the device, and either
 Dispatch (tokenize + encode + retrieval dispatch) and resolve (read +
 submit) run on two threads, handing tiles through a bounded queue whose
 depth is the dispatch-ahead bound.
+
+Spans (``utils/profiling.py``): on the dispatch thread ``frontend.dispatch``
+a tile (attrs: tile id, width, real rows, length rung) around
+``frontend.tokenize``, the encoder's spans and ``engine.launch``; on the
+resolver ``frontend.pending`` (from the tile's dispatch end until the
+resolver takes it), ``engine.read`` and ``frontend.deliver``. While a
+profiler session runs every answered request leaves a
+``frontend.request`` record from its submit to its result, with its id,
+its tile, the tile's dispatch start (``dispatch_ns``) and ``rerouted``
+for a row over the job bucket.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
 import queue
 import threading
 import time
@@ -28,6 +40,10 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from scaling_retriever_tpu_torch.serving.server import LATENCY_WINDOW
+from scaling_retriever_tpu_torch.utils.profiling import (profile_span,
+                                                         record, tracing)
 
 _STOP = object()
 
@@ -81,10 +97,11 @@ def _top_t(model, ids: np.ndarray, mask: np.ndarray, t: int):
     """Encode a tile and keep each row's top-``t`` (terms int32, vals f32);
     non-positive slots carry term 0 and weight 0 (unused)."""
     reps = model.encode(ids, mask)                       # [w, V] f32
-    vals, terms = torch.topk(reps, t, dim=1)
-    vals = vals.clamp_min(0.0)
-    terms = torch.where(vals > 0, terms, 0).to(torch.int32)
-    return terms, vals
+    with profile_span("encoder.top_t"):
+        vals, terms = torch.topk(reps, t, dim=1)
+        vals = vals.clamp_min(0.0)
+        terms = torch.where(vals > 0, terms, 0).to(torch.int32)
+        return terms, vals
 
 
 def make_encode_fn_handoff(model, t_sparse: int = 64) -> Callable:
@@ -117,6 +134,24 @@ def make_encode_fn(model, t_sparse: int = 64) -> Callable:
     encode.dispatch = dispatch
     encode.read = read
     return encode
+
+
+def _fail(reqs: list, exc: Exception) -> None:
+    for req in reqs:
+        if not req[2].done():
+            req[2].set_exception(exc)
+
+
+def _note_request(req: tuple, tile, end_ns: int, rerouted: bool) -> None:
+    """An answered request's record (kept while a profiler session
+    runs)."""
+    record("frontend.request", req[3], end_ns, id=req[4],
+           tile=tile.attrs["tile"], dispatch_ns=tile.t0, rerouted=rerouted)
+
+
+def _note_answered(req: tuple, tile, rerouted: bool, fut: Future) -> None:
+    if fut.exception() is None:
+        _note_request(req, tile, time.time_ns(), rerouted)
 
 
 def _chain(inner: Future, fut: Future) -> None:
@@ -178,7 +213,8 @@ class QueryEncoderFrontend:
         self._lock = threading.Lock()
         self.n_texts = 0
         self.n_encode_batches = 0
-        self.encode_latencies_s: list = []
+        self.n_tiles = 0            # tiles dispatched, the tiles' ids
+        self.encode_latencies_s = collections.deque(maxlen=LATENCY_WINDOW)
         self.rung_tiles: dict = {}  # (width, q_len) -> tile count
         self.stage_s = {"wait": 0.0, "tokenize": 0.0, "dispatch": 0.0,
                         "read": 0.0, "submit": 0.0}
@@ -287,7 +323,9 @@ class QueryEncoderFrontend:
         fut: Future = Future()
         with self._lock:
             self.n_texts += 1
-        self._q.put((text, topk, fut, time.perf_counter()))
+            rid = self.n_texts
+        # (text, topk, future, submit ns, request id)
+        self._q.put((text, topk, fut, time.time_ns(), rid))
         return fut
 
     def search_text(self, text: str, topk: Optional[int] = None):
@@ -312,36 +350,39 @@ class QueryEncoderFrontend:
     def _dispatch_batch(self, reqs: list):
         """Tokenize + enqueue one encode tile and, on the handoff path,
         the retrieval program behind it. Returns (reqs, width, ids, handle,
-        rpayload) for ``_resolve_batch``, or None if dispatch failed (the
-        batch's futures get the exception; serving continues)."""
+        rpayload, tile span) for ``_resolve_batch``, or None if dispatch
+        failed (the batch's futures get the exception; serving
+        continues)."""
         texts = [r[0] for r in reqs]
         width = next(w for w in self.widths if w >= len(texts))
         padded = texts + [texts[-1]] * (width - len(texts))
         dispatch = getattr(self.encode_fn, "dispatch", self.encode_fn)
+        self.n_tiles += 1
         try:
-            t0 = time.perf_counter()
-            ids, mask = self.tokenize_fn(padded)
-            t1 = time.perf_counter()
-            handle = dispatch(ids, mask)
-            rpayload = None
-            if self.handoff:
-                if self.jobs_bucket is None:
-                    # unwarmed start: size the bucket from the first tile
-                    self.jobs_bucket = self._size_bucket(
-                        self._engine_need(handle))
-                rpayload = self.server.backend.engine \
-                    .retrieve_tile_handoff_async(
-                        handle[0], handle[1], self.jobs_bucket,
-                        topk=self.server.backend.topk)
-            t2 = time.perf_counter()
-            self.stage_s["tokenize"] += t1 - t0
-            self.stage_s["dispatch"] += t2 - t1
+            with profile_span("frontend.dispatch", tile=self.n_tiles,
+                              width=width, rows=len(reqs)) as tile:
+                with profile_span("frontend.tokenize") as tok:
+                    ids, mask = self.tokenize_fn(padded)
+                tile.attrs["rung"] = int(ids.shape[1])
+                handle = dispatch(ids, mask)
+                rpayload = None
+                if self.handoff:
+                    if self.jobs_bucket is None:
+                        # unwarmed start: size the bucket from the first
+                        # tile
+                        self.jobs_bucket = self._size_bucket(
+                            self._engine_need(handle))
+                    rpayload = self.server.backend.engine \
+                        .retrieve_tile_handoff_async(
+                            handle[0], handle[1], self.jobs_bucket,
+                            topk=self.server.backend.topk,
+                            n_real=len(reqs))
+            self.stage_s["tokenize"] += tok.seconds
+            self.stage_s["dispatch"] += (tile.t1 - tok.t1) / 1e9
         except Exception as e:  # fail this batch; keep serving
-            for _, _, fut, _ in reqs:
-                if not fut.done():
-                    fut.set_exception(e)
+            _fail(reqs, e)
             return None
-        return reqs, width, ids, handle, rpayload
+        return reqs, width, ids, handle, rpayload, tile
 
     def _count_tile(self, width: int, ids, handoff: bool) -> None:
         with self._lock:
@@ -351,84 +392,96 @@ class QueryEncoderFrontend:
             self.rung_tiles[key] = self.rung_tiles.get(key, 0) + 1
 
     def _resolve_batch(self, reqs: list, width: int, ids, handle,
-                       rpayload=None) -> None:
+                       rpayload, tile) -> None:
+        record("frontend.pending", tile.t1, time.time_ns(),
+               tile=tile.attrs["tile"])
         if rpayload is not None:
-            self._resolve_handoff(reqs, width, ids, handle, rpayload)
+            self._resolve_handoff(reqs, width, ids, handle, rpayload, tile)
             return
         read = getattr(self.encode_fn, "read", None)
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         try:
             packed = read(handle) if read is not None else handle
         except Exception as e:
-            for _, _, fut, _ in reqs:
-                if not fut.done():
-                    fut.set_exception(e)
+            _fail(reqs, e)
             return
         t = self.t_sparse
-        t_read = time.perf_counter()
-        self.stage_s["read"] += t_read - t0
         self._count_tile(width, ids, False)
-        for i, (_, topk, fut, t_sub) in enumerate(reqs):
-            vals = packed[i, t:2 * t]
-            keep = vals > 0
-            terms = packed[i, :t][keep].astype(np.int32)
-            try:
-                inner = self.server.submit((terms, vals[keep]), topk)
-            except Exception as e:  # this request only, never co-riders
-                fut.set_exception(e)
-                continue
-            with self._lock:
-                self.encode_latencies_s.append(time.perf_counter() - t_sub)
-            _chain(inner, fut)
-        self.stage_s["submit"] += time.perf_counter() - t_read
+        traced = tracing()
+        with profile_span("frontend.deliver", tile=tile.attrs["tile"]) as sp:
+            for i, req in enumerate(reqs):
+                _, topk, fut, t_sub, _ = req
+                vals = packed[i, t:2 * t]
+                keep = vals > 0
+                terms = packed[i, :t][keep].astype(np.int32)
+                try:
+                    inner = self.server.submit((terms, vals[keep]), topk)
+                except Exception as e:  # this request only, never co-riders
+                    fut.set_exception(e)
+                    continue
+                with self._lock:
+                    self.encode_latencies_s.append(
+                        (time.time_ns() - t_sub) / 1e9)
+                _chain(inner, fut)
+                if traced:
+                    fut.add_done_callback(functools.partial(
+                        _note_answered, req, tile, False))
+        self.stage_s["read"] += (sp.t0 - t0) / 1e9
+        self.stage_s["submit"] += sp.seconds
 
     def _resolve_handoff(self, reqs: list, width: int, ids, handle,
-                         rpayload) -> None:
+                         rpayload, tile) -> None:
         """One read (the retrieval result, with each query's need).
         In-bucket rows resolve directly; over-bucket rows (truncated job
         table, partial scores) re-route through ``server.submit``."""
         backend = self.server.backend
         engine = backend.engine
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         try:
             scores, rows, need = engine.finalize_handoff(rpayload)
         except Exception as e:
-            for _, _, fut, _ in reqs:
-                if not fut.done():
-                    fut.set_exception(e)
+            _fail(reqs, e)
             return
-        t_read = time.perf_counter()
-        self.stage_s["read"] += t_read - t0
         self._count_tile(width, ids, True)
-        results = backend._to_results(scores, rows, len(reqs))
-        fb_terms = fb_vals = None
-        for i, (_, topk, fut, t_sub) in enumerate(reqs):
-            k = topk or backend.topk
-            if int(need[i]) > self.jobs_bucket:
-                # truncated row: the only time this path reads the reps
-                if fb_terms is None:
-                    fb_terms = handle[0].cpu().numpy()
-                    fb_vals = handle[1].cpu().numpy()
-                keep = fb_vals[i] > 0
-                with self._lock:
-                    self.n_fallback_queries += 1
-                try:
-                    inner = self.server.submit(
-                        (fb_terms[i][keep].astype(np.int32),
-                         fb_vals[i][keep]), topk)
-                except Exception as e:
-                    if not fut.done():
-                        fut.set_exception(e)
+        traced = tracing()
+        with profile_span("frontend.deliver", tile=tile.attrs["tile"]) as sp:
+            results = backend._to_results(scores, rows, len(reqs))
+            fb_terms = fb_vals = None
+            for i, req in enumerate(reqs):
+                _, topk, fut, t_sub, _ = req
+                k = topk or backend.topk
+                if int(need[i]) > self.jobs_bucket:
+                    # truncated row: the only time this path reads the reps
+                    if fb_terms is None:
+                        fb_terms = handle[0].cpu().numpy()
+                        fb_vals = handle[1].cpu().numpy()
+                    keep = fb_vals[i] > 0
+                    with self._lock:
+                        self.n_fallback_queries += 1
+                    try:
+                        inner = self.server.submit(
+                            (fb_terms[i][keep].astype(np.int32),
+                             fb_vals[i][keep]), topk)
+                    except Exception as e:
+                        if not fut.done():
+                            fut.set_exception(e)
+                        continue
+                    _chain(inner, fut)
+                    if traced:
+                        fut.add_done_callback(functools.partial(
+                            _note_answered, req, tile, True))
                     continue
-                _chain(inner, fut)
-                continue
-            ids_i, sc_i = results[i]
-            with self._lock:
-                # the full text -> result latency on this path
-                self.encode_latencies_s.append(time.perf_counter() - t_sub)
-            if not fut.done():
-                fut.set_result((ids_i[:k], sc_i[:k]))
-        self.stage_s["submit"] += time.perf_counter() - t_read
+                ids_i, sc_i = results[i]
+                now = time.time_ns()
+                with self._lock:
+                    # the full text -> result latency on this path
+                    self.encode_latencies_s.append((now - t_sub) / 1e9)
+                if not fut.done():
+                    fut.set_result((ids_i[:k], sc_i[:k]))
+                if traced:
+                    _note_request(req, tile, now, False)
+        self.stage_s["read"] += (sp.t0 - t0) / 1e9
+        self.stage_s["submit"] += sp.seconds
 
     def _loop(self) -> None:
         """Dispatch thread: collect -> tokenize -> dispatch ->
@@ -461,10 +514,10 @@ class QueryEncoderFrontend:
                 break
             try:
                 self._resolve_batch(*item)
-            except Exception as e:  # fail this tile's futures; a dead
-                for _, _, fut, _ in item[0]:  # resolver would wedge the
-                    if not fut.done():        # dispatch thread's put
-                        fut.set_exception(e)
+            except Exception as e:
+                # fail this tile's futures; a dead resolver would wedge
+                # the dispatch thread's put
+                _fail(item[0], e)
 
     # -- stats ---------------------------------------------------------
 

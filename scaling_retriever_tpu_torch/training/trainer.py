@@ -296,28 +296,37 @@ class Trainer:
 
     def _train_step(self, batch, step: int) -> dict:
         """One micro step: the loss and its gradients, accumulated; at the
-        last micro step of an optimizer step, clip and update."""
-        loss, weighted = self._combined_loss(batch, step)
-        # backward (not autograd.grad): FSDP reduce-scatters into .grad
-        loss.backward(inputs=self._leaves if self.use_lora else None)
-        grads = []
-        for p in self._leaves:
-            grads.append(torch.zeros_like(p) if p.grad is None else p.grad)
-            p.grad = None
-        grads = self._reduce(grads)
-        gnorm = global_norm(grads)
-        gas = max(self.args.gradient_accumulation_steps, 1)
-        mini = (step - 1) % gas
-        if mini == 0:
-            self._acc = list(grads)
-        else:
-            for acc, g in zip(self._acc, grads):
-                acc.add_((g - acc) / (mini + 1))
+        last micro step of an optimizer step, clip and update. Spans:
+        ``train.forward``, ``train.backward``, ``train.reduce`` (the
+        gradients gathered, reduced over ranks, their norm and the
+        accumulation), ``train.optimizer`` (``_apply``) and ``train.read``
+        (the metrics read to the host)."""
+        with profile_span("train.forward"):
+            loss, weighted = self._combined_loss(batch, step)
+        with profile_span("train.backward"):
+            # backward (not autograd.grad): FSDP reduce-scatters into .grad
+            loss.backward(inputs=self._leaves if self.use_lora else None)
+        with profile_span("train.reduce"):
+            grads = []
+            for p in self._leaves:
+                grads.append(torch.zeros_like(p) if p.grad is None
+                             else p.grad)
+                p.grad = None
+            grads = self._reduce(grads)
+            gnorm = global_norm(grads)
+            gas = max(self.args.gradient_accumulation_steps, 1)
+            mini = (step - 1) % gas
+            if mini == 0:
+                self._acc = list(grads)
+            else:
+                for acc, g in zip(self._acc, grads):
+                    acc.add_((g - acc) / (mini + 1))
         if mini == gas - 1:
             self._apply(self._acc)
             self._acc = None
-        metrics = {"loss": loss, "grad_norm": gnorm, **weighted}
-        return {k: float(v.detach()) for k, v in metrics.items()}
+        with profile_span("train.read"):
+            metrics = {"loss": loss, "grad_norm": gnorm, **weighted}
+            return {k: float(v.detach()) for k, v in metrics.items()}
 
     @torch.no_grad()
     def _reduce(self, grads) -> list:
@@ -350,15 +359,18 @@ class Trainer:
 
     @torch.no_grad()
     def _apply(self, grads) -> None:
-        norm = global_norm(grads)
-        if not bool(norm < self.args.max_grad_norm):
-            grads = [g / norm * self.args.max_grad_norm for g in grads]
-        for p, g in zip(self._leaves, grads):
-            p.grad = g.to(p.dtype)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.step)
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        """Clip (one read of the norm) and take the AdamW step: the span
+        ``train.optimizer``."""
+        with profile_span("train.optimizer"):
+            norm = global_norm(grads)
+            if not bool(norm < self.args.max_grad_norm):
+                grads = [g / norm * self.args.max_grad_norm for g in grads]
+            for p, g in zip(self._leaves, grads):
+                p.grad = g.to(p.dtype)
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.schedule(self.step)
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
 
     # ------------------------------------------------------------------
 
@@ -408,7 +420,7 @@ class Trainer:
                          else shard_batch(batch, self.mesh))
                 # the ramp advances once per micro step
                 self.micro_step += 1
-                with profile_span("train_step"):
+                with profile_span("train.step"):
                     metrics = self._train_step(batch, self.micro_step)
                 for k, v in metrics.items():
                     accum[k] = accum.get(k, 0.0) + v
