@@ -29,6 +29,7 @@ from scaling_retriever_tpu_torch.models.lora import (LoraConfig,
                                                     init_lora_params,
                                                     load_adapter, merge_lora,
                                                     save_adapter)
+from scaling_retriever_tpu_torch.models.tile_graphs import TileGraphs
 from scaling_retriever_tpu_torch.ops.pooling import dense_pool, sparse_pool
 from scaling_retriever_tpu_torch.parallel.collectives import (Part,
                                                              gather_rows)
@@ -60,7 +61,9 @@ def _resolve_model_dir(name_or_path: str) -> str:
 
 class LLM2Retriever:
     """Base retriever: text ids → sparse reps over the vocab ("sparse") or
-    dense embeddings of the hidden size ("dense")."""
+    dense embeddings of the hidden size ("dense"). ``tile_graphs`` holds
+    the CUDA graphs of the text frontend's tiles over this encoder
+    (``models/tile_graphs.py``), freed with it."""
 
     MODEL_TYPE = "llama"
     POOLING = "sparse"           # "sparse" | "dense"
@@ -75,6 +78,7 @@ class LLM2Retriever:
         self.lora = lora
         self.lora_config = lora_config
         self.T = T
+        self.tile_graphs = TileGraphs()
 
     @property
     def device(self) -> torch.device:
@@ -203,6 +207,7 @@ class LLM2Retriever:
             return self
         merged = merge_lora(self.params, self.lora, self.lora_config)
         self.lora = self.lora_config = None
+        self.tile_graphs = TileGraphs()    # they ran the adapter's branch
         return type(self)(merged, self.config, None, None, T=self.T)
 
     def save_pretrained(self, save_dir: str) -> None:

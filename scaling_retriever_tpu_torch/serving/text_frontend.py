@@ -17,11 +17,20 @@ Dispatch (tokenize + encode + retrieval dispatch) and resolve (read +
 submit) run on two threads, handing tiles through a bounded queue whose
 depth is the dispatch-ahead bound.
 
+On a CUDA device ``warmup()`` captures each (width, length rung) tile as
+one CUDA graph (``models/tile_graphs.py``), from the device-resident ids
+and mask to the (terms, vals) handoff; the dispatch thread replays it for
+every tile of a warmed shape, and forms each tile once the card has run
+the last. Shapes not warmed, and the encoder's other callers, run the
+tile eagerly.
+
 Spans (``utils/profiling.py``): on the dispatch thread ``frontend.dispatch``
 a tile (attrs: tile id, width, real rows, length rung) around
-``frontend.tokenize``, the encoder's spans and ``engine.launch``; on the
-resolver ``frontend.pending`` (from the tile's dispatch end until the
-resolver takes it), ``engine.read`` and ``frontend.deliver``. While a
+``frontend.tokenize``, the encoder's spans (a replayed tile:
+``encoder.upload`` and ``encoder.graph``, attrs width and rung) and
+``engine.launch``; on the resolver ``frontend.pending`` (from the tile's
+dispatch end until the resolver takes it), ``engine.read`` and
+``frontend.deliver``. While a
 profiler session runs every answered request leaves a
 ``frontend.request`` record from its submit to its result, with its id,
 its tile, the tile's dispatch start (``dispatch_ns``) and ``rerouted``
@@ -41,6 +50,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from scaling_retriever_tpu_torch.models import tile_graphs
 from scaling_retriever_tpu_torch.serving.server import LATENCY_WINDOW
 from scaling_retriever_tpu_torch.utils.profiling import (profile_span,
                                                          record, tracing)
@@ -93,7 +103,7 @@ def make_hf_tokenize_fn(tokenizer, max_length: int = 64,
     return tokenize
 
 
-def _top_t(model, ids: np.ndarray, mask: np.ndarray, t: int):
+def _encode_top_t(model, ids, mask, t: int):
     """Encode a tile and keep each row's top-``t`` (terms int32, vals f32);
     non-positive slots carry term 0 and weight 0 (unused)."""
     reps = model.encode(ids, mask)                       # [w, V] f32
@@ -102,6 +112,14 @@ def _top_t(model, ids: np.ndarray, mask: np.ndarray, t: int):
         vals = vals.clamp_min(0.0)
         terms = torch.where(vals > 0, terms, 0).to(torch.int32)
         return terms, vals
+
+
+def _top_t(model, ids: np.ndarray, mask: np.ndarray, t: int):
+    """``_encode_top_t`` through the encoder's tile graphs: replayed where
+    ``warmup()`` captured the tile's shape, else eager."""
+    return model.tile_graphs.run(
+        functools.partial(_encode_top_t, model, t=t), ids, mask, t,
+        model.device)
 
 
 def make_encode_fn_handoff(model, t_sparse: int = 64) -> Callable:
@@ -134,6 +152,17 @@ def make_encode_fn(model, t_sparse: int = 64) -> Callable:
     encode.dispatch = dispatch
     encode.read = read
     return encode
+
+
+def _recorded(handle) -> Optional[torch.cuda.Event]:
+    """An event recorded behind the work queued so far on the card of a
+    tile's handle ((terms, vals) or a packed tensor), or None off a card."""
+    t = handle[0] if isinstance(handle, tuple) else handle
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return event
 
 
 def _fail(reqs: list, exc: Exception) -> None:
@@ -213,6 +242,8 @@ class QueryEncoderFrontend:
         self._lock = threading.Lock()
         self.n_texts = 0
         self.n_encode_batches = 0
+        self.graph_tiles = 0        # tiles dispatched as a replayed graph
+        self.eager_tiles = 0
         self.n_tiles = 0            # tiles dispatched, the tiles' ids
         self.encode_latencies_s = collections.deque(maxlen=LATENCY_WINDOW)
         self.rung_tiles: dict = {}  # (width, q_len) -> tile count
@@ -232,10 +263,14 @@ class QueryEncoderFrontend:
         return int(engine.job_need(handle[0].cpu().numpy(),
                                    handle[1].cpu().numpy()).max(initial=0))
 
+    @torch.no_grad()
+    @tile_graphs.capture_tiles()
     def warmup(self, sample_texts: Sequence[str], passes: int = 3) -> dict:
         """Run every encoder (width, length rung) shape, and on the handoff
         path size the standing bucket from the sample and run its
-        retrieval shapes, before serving. Call before ``start()``."""
+        retrieval shapes, before serving. Call before ``start()``. On a
+        CUDA device the encoder captures each shape as a graph after its
+        first pass."""
         if self._started:
             raise RuntimeError("warm up before start()")
         t0 = time.perf_counter()
@@ -364,7 +399,9 @@ class QueryEncoderFrontend:
                 with profile_span("frontend.tokenize") as tok:
                     ids, mask = self.tokenize_fn(padded)
                 tile.attrs["rung"] = int(ids.shape[1])
+                replayed = tile_graphs.replays()
                 handle = dispatch(ids, mask)
+                graphed = tile_graphs.replays() > replayed
                 rpayload = None
                 if self.handoff:
                     if self.jobs_bucket is None:
@@ -379,6 +416,9 @@ class QueryEncoderFrontend:
                             n_real=len(reqs))
             self.stage_s["tokenize"] += tok.seconds
             self.stage_s["dispatch"] += (tile.t1 - tok.t1) / 1e9
+            with self._lock:
+                self.graph_tiles += int(graphed)
+                self.eager_tiles += int(not graphed)
         except Exception as e:  # fail this batch; keep serving
             _fail(reqs, e)
             return None
@@ -483,12 +523,21 @@ class QueryEncoderFrontend:
         self.stage_s["read"] += (sp.t0 - t0) / 1e9
         self.stage_s["submit"] += sp.seconds
 
+    @torch.no_grad()
     def _loop(self) -> None:
         """Dispatch thread: collect -> tokenize -> dispatch ->
         ``_pending.put`` (a blocking put when the resolver is
         ``pipeline_depth`` tiles behind: texts pile up and the next tile
-        forms full)."""
+        forms full). Grad is off, so warmed tiles replay their graphs.
+
+        The next tile forms once the card has run the last one, so that
+        it takes in the texts that arrived meanwhile: its upload would wait
+        for the card all the same, and a tile formed while the card is busy
+        leaves them to the tile after."""
+        ready = None
         while True:
+            if ready is not None:
+                ready.synchronize()
             t0 = time.perf_counter()
             item = self._q.get()
             self.stage_s["wait"] += time.perf_counter() - t0
@@ -501,6 +550,7 @@ class QueryEncoderFrontend:
             if batch:
                 dispatched = self._dispatch_batch(batch)
                 if dispatched is not None:
+                    ready = _recorded(dispatched[3])
                     self._pending.put(dispatched)
             if stop:
                 break
@@ -529,6 +579,8 @@ class QueryEncoderFrontend:
                    "handoff": self.handoff,
                    "n_handoff_tiles": self.n_handoff_tiles,
                    "n_fallback_queries": self.n_fallback_queries,
+                   "graph_tiles": self.graph_tiles,
+                   "eager_tiles": self.eager_tiles,
                    "jobs_bucket": self.jobs_bucket,
                    "rung_tiles": {f"{w}x{n}": c for (w, n), c
                                   in sorted(self.rung_tiles.items())},

@@ -424,3 +424,173 @@ def test_dense_layout_from_host_store_on_card(cuda, monkeypatch):
         if quantize:
             assert all(torch.equal(g.cpu(), w) for g, w
                        in zip(gpu._layout[2], cpu._layout[2]))
+
+
+# -- the encoder's tile graphs ----------------------------------------------
+
+TILE_T = 16
+
+
+class _EchoServer:
+    """Stands in for the retrieval server: a request's result is its rep."""
+
+    backend = None
+
+    def submit(self, rep, topk=None):
+        from concurrent.futures import Future
+
+        fut = Future()
+        fut.set_result(rep)
+        return fut
+
+
+def _tiny_encoder(family, dev, vocab=20000):
+    """A Qwen2-shaped encoder (q/k/v bias, tied head, GQA 3:1) or a
+    Mistral-shaped one (untied head, GQA 4:1), bf16 as configured, with
+    random q/k/v biases."""
+    from scaling_retriever_tpu_torch.models.config import ModelConfig
+    from scaling_retriever_tpu_torch.models.encoder import (MistralBiSparse,
+                                                            Qwen2BiSparse)
+    from scaling_retriever_tpu_torch.models.weights import random_params
+
+    qwen = family == "qwen2"
+    cfg = ModelConfig(
+        vocab_size=vocab, hidden_size=96 if qwen else 128,
+        intermediate_size=256, num_hidden_layers=2,
+        num_attention_heads=6 if qwen else 8,
+        num_key_value_heads=2, rope_theta=1e6 if qwen else 1e4,
+        tie_word_embeddings=qwen, attention_qkv_bias=qwen,
+        model_type=family, dtype=torch.bfloat16,
+        param_dtype=torch.bfloat16)
+    params = random_params(cfg, 3, dev)
+    if qwen:
+        g = torch.Generator(device=dev).manual_seed(4)
+        with torch.no_grad():
+            for layer in params.layers:
+                for name in ("wq", "wk", "wv"):
+                    getattr(layer, name).bias.normal_(0.0, 0.5, generator=g)
+    return (Qwen2BiSparse if qwen else MistralBiSparse)(params, cfg)
+
+
+def _tile_texts(seed, n, vocab):
+    rng = np.random.default_rng(seed)
+    return [" ".join(f"w{x}" for x in rng.integers(1, vocab,
+                                                    rng.integers(3, 15)))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("family", ["qwen2", "mistral"])
+def test_graphed_tiles_equal_eager_tiles(cuda, family):
+    """At each (width, rung) of a two-width, two-rung ladder a replayed
+    tile's (terms, vals) equal the eager tile's bit for bit, and tile n's
+    returned tensors still hold tile n's values after tile n+1 replays."""
+    from scaling_retriever_tpu_torch.benches.common import StandInTokenizer
+    from scaling_retriever_tpu_torch.models import tile_graphs
+    from scaling_retriever_tpu_torch.serving.text_frontend import (
+        QueryEncoderFrontend, make_encode_fn, make_encode_fn_handoff)
+
+    model = _tiny_encoder(family, cuda)
+    vocab = model.vocab_size
+    tok = StandInTokenizer(vocab, (8, 16))
+    fe = QueryEncoderFrontend(_EchoServer(), make_encode_fn(model, TILE_T),
+                              tok, widths=(4, 8), t_sparse=TILE_T)
+    texts = _tile_texts(5, 16, vocab)
+    fe.warmup(texts[:4], passes=2)
+    assert len(model.tile_graphs) == 4
+    encode = make_encode_fn_handoff(model, TILE_T)
+    for width in (4, 8):
+        for rung in (8, 16):
+            tiles = [tok(texts[i:i + width], length=rung)
+                     for i in (0, width)]
+            n0 = tile_graphs.replays()
+            with torch.no_grad():
+                got = [encode(*t) for t in tiles]
+            assert tile_graphs.replays() == n0 + 2
+            with torch.enable_grad():
+                want = [encode(*t) for t in tiles]
+            assert tile_graphs.replays() == n0 + 2
+            torch.cuda.synchronize()
+            assert not torch.equal(got[0][1], got[1][1])
+            for g, w in zip(got, want):
+                assert (g[0].dtype, g[1].dtype) == (torch.int32,
+                                                     torch.float32)
+                assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+            assert int((got[0][1] > 0).sum()) > 0
+
+
+def test_unwarmed_shapes_and_grad_run_eager(cuda):
+    """The frontend replays only the shapes its encoder captured, and only
+    with grad off: a width no warm-up declared, and a tile dispatched with
+    grad on, run eager and count under ``eager_tiles``. The served reps
+    equal the eager tile's."""
+    from concurrent.futures import Future
+
+    from scaling_retriever_tpu_torch.benches.common import StandInTokenizer
+    from scaling_retriever_tpu_torch.serving.text_frontend import (
+        QueryEncoderFrontend, make_encode_fn)
+
+    model = _tiny_encoder("qwen2", cuda)
+    vocab = model.vocab_size
+    tok = StandInTokenizer(vocab, (16,))
+    texts = _tile_texts(6, 24, vocab)
+    warmed = QueryEncoderFrontend(_EchoServer(), make_encode_fn(model, TILE_T),
+                                  tok, widths=(4,), t_sparse=TILE_T)
+    warmed.warmup(texts[:4], passes=2)
+    assert len(model.tile_graphs) == 1
+    cold = QueryEncoderFrontend(_EchoServer(), make_encode_fn(model, TILE_T),
+                                tok, widths=(8,), t_sparse=TILE_T)
+    served = {}
+    for fe, chunk in ((warmed, texts[:12]), (cold, texts[12:])):
+        with fe:
+            fe.start()
+            futs = [(t, fe.submit_text(t)) for t in chunk]
+            served.update((t, (f.result(timeout=60), fe.widths[0]))
+                          for t, f in futs)
+    w, c = warmed.stats(), cold.stats()
+    assert w["graph_tiles"] == w["n_encode_batches"] >= 3
+    assert w["eager_tiles"] == 0
+    assert c["graph_tiles"] == 0 and c["eager_tiles"] == c["n_encode_batches"]
+    assert len(model.tile_graphs) == 1
+    # a tile of the captured shape dispatched with grad on
+    reqs = [(t, None, Future(), 0, i) for i, t in enumerate(texts[:4])]
+    with torch.enable_grad():
+        item = warmed._dispatch_batch(reqs)
+    assert item is not None
+    assert warmed.stats()["graph_tiles"] == w["graph_tiles"]
+    assert warmed.stats()["eager_tiles"] == 1
+    encode = make_encode_fn(model, TILE_T)
+    for t, ((terms, vals), width) in served.items():
+        with torch.enable_grad():        # eager, at the serving tile's shape
+            packed = encode(*tok([t] * width))
+        keep = packed[0, TILE_T:] > 0
+        np.testing.assert_array_equal(terms, packed[0, :TILE_T][keep])
+        np.testing.assert_array_equal(vals, packed[0, TILE_T:][keep])
+
+
+def test_tile_graph_pools_are_freed_with_the_encoder(cuda):
+    """A captured 64 x 64 tile over a 32,000-term vocabulary holds hundreds
+    of MB in its pool; deleting the encoder and its frontend returns them."""
+    import gc
+
+    from scaling_retriever_tpu_torch.benches.common import StandInTokenizer
+    from scaling_retriever_tpu_torch.serving.text_frontend import (
+        QueryEncoderFrontend, make_encode_fn)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(cuda)
+    model = _tiny_encoder("mistral", cuda, vocab=32000)
+    fe = QueryEncoderFrontend(_EchoServer(), make_encode_fn(model, TILE_T),
+                              StandInTokenizer(32000, (64,)), widths=(64,),
+                              t_sparse=TILE_T)
+    fe.warmup(_tile_texts(7, 8, 32000), passes=2)
+    assert len(model.tile_graphs) == 1
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved(cuda) - base
+    assert held > 256 << 20
+    del fe, model
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(cuda) - base < 64 << 20

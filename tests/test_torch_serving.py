@@ -168,6 +168,42 @@ def test_handoff_end_to_end_exact(stack):
     assert st["n_handoff_tiles"] >= 1 and st["n_fallback_queries"] == 0
 
 
+def test_a_cpu_encoder_captures_no_tile_graph(stack):
+    """On a CPU device ``warmup()`` captures no tile graph, every served
+    tile counts under ``eager_tiles``, and each text's result is that of
+    its eager tile's reps through the server."""
+    idx, _, server, _ = stack
+    cfg = ModelConfig(vocab_size=V, hidden_size=32, intermediate_size=64,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, rope_theta=1e4)
+    model = LlamaBiSparse(random_params(cfg, 5, "cpu"), cfg)
+    encode = make_encode_fn_handoff(model, T)
+    frontend = QueryEncoderFrontend(server, encode, fake_tokenize,
+                                    widths=(4, 8), t_sparse=T)
+    rng = np.random.default_rng(9)
+    frontend.warmup(_texts(rng, 4), passes=2)
+    assert len(model.tile_graphs) == 0
+    texts = _texts(rng, 12)
+    with server:
+        frontend.start()
+        try:
+            got = [f.result(timeout=60)
+                   for f in [frontend.submit_text(t) for t in texts]]
+        finally:
+            frontend.stop()
+        for text, (ids, scores) in zip(texts, got):
+            terms, vals = encode(*fake_tokenize([text]))
+            keep = vals[0] > 0
+            want = server.search((terms[0][keep].numpy(),
+                                  vals[0][keep].numpy()))
+            assert ids
+            tie_equal_topk(*want, ids, scores, rtol=1e-5)
+    st = frontend.stats()
+    assert st["graph_tiles"] == 0
+    assert st["eager_tiles"] == st["n_encode_batches"] >= 2
+    assert len(model.tile_graphs) == 0
+
+
 def test_handoff_over_bucket_falls_back(stack):
     """jobs_bucket=1 truncates every query's job table: the need column
     re-routes each through server.submit and results stay exact."""

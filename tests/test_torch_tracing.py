@@ -372,6 +372,17 @@ def _recs():
         ("engine.copy_out", 0, 10, 2, None, {"jobs_real": 0,
                                              "jobs_slab": 999}),
     ]
+    # four text tiles in the window, two of them replayed as a graph; one
+    # tile's graph record lies on another thread, one tile starts before
+    # the window
+    for a, b, graph in ((10_000, 100_000, 1), (110_000, 200_000, 1),
+                        (210_000, 300_000, None), (310_000, 340_000, 5)):
+        recs.append(("frontend.dispatch", W0 + a, W0 + b, 1, None,
+                     {"tile": a}))
+        if graph is not None:
+            recs.append(("encoder.graph", W0 + a + 5_000, W0 + b - 5_000,
+                         graph, "frontend.dispatch", {"width": 8}))
+    recs.append(("frontend.dispatch", W0 - 10_000, W0 + 5_000, 1, None, {}))
     for i in range(100):
         start = W0 + i
         recs.append(("frontend.request", start, start + 200 * MS, 4, None,
@@ -402,6 +413,8 @@ EXPECTED = {
     "engine.slot_fill.text": 100.0 * 40 / 128,
     "engine.slot_fill.stream": 100.0 * 40 / 128,
     "frontend.queue_wait.text": float(np.percentile(np.arange(1, 101), 99)),
+    # two of the four tiles wholly inside the window
+    "encoder.graph_share.text": 50.0,
 }
 
 
@@ -415,4 +428,18 @@ def test_a_reader_on_hand_built_records(name, monkeypatch):
     assert reader.read(_rec()) is None
     monkeypatch.setattr(profiling, "_dropped", 0)
     monkeypatch.setattr(profiling, "_records", [])
+    assert reader.read(_rec()) is None
+
+
+def test_the_graph_share_reads_every_replayed_tile(monkeypatch):
+    """100% where every tile of the window holds an ``encoder.graph``
+    record; None where the port keeps none (a port without the graphs)."""
+    tiles = [("frontend.dispatch", W0 + a, W0 + a + 50_000, 7, None, {})
+             for a in range(0, 900_000, 100_000)]
+    graphs = [("encoder.graph", r[1] + 1_000, r[2] - 1_000, 7,
+               "frontend.dispatch", {}) for r in tiles]
+    reader = _reader("encoder.graph_share.text")
+    monkeypatch.setattr(profiling, "_records", tiles + graphs)
+    assert reader.read(_rec()) == 100.0
+    monkeypatch.setattr(profiling, "_records", tiles)
     assert reader.read(_rec()) is None
