@@ -76,7 +76,10 @@ def qkv_bias(m: dict) -> bool:
     return m.get("model_type") == "qwen2" or bool(m.get("attention_bias"))
 
 
-def _draw(shapes, seed: int, stream: int, device, dtype) -> dict:
+def draw(shapes, seed: int, stream: int, device, dtype) -> dict:
+    """{name: tensor in ``dtype``} of (name, shape, kind) ``shapes``, in
+    order from one float32 ``randn`` of stream ``stream``: a "mat" scaled
+    by ``WEIGHT_STD``, a "norm" 1 + ``NORM_STD`` times it."""
     n = sum(math.prod(s) for _, s, _ in shapes)
     g = torch.Generator(device=device).manual_seed(mix(seed, stream))
     flat = torch.randn(n, generator=g, device=device, dtype=torch.float32)
@@ -92,22 +95,22 @@ def _draw(shapes, seed: int, stream: int, device, dtype) -> dict:
 def layer_weights(m: dict, seed: int, layer: int, device,
                   dtype=torch.bfloat16) -> dict:
     """Layer ``layer``'s tensors, in ``dtype``."""
-    return _draw(layer_shapes(m), seed, layer, device, dtype)
+    return draw(layer_shapes(m), seed, layer, device, dtype)
 
 
 def embed_weights(m: dict, seed: int, device, dtype=torch.bfloat16) -> dict:
     """The embeddings [vocab, hidden] and the final norm."""
-    return _draw([("embed", (m["vocab_size"], m["hidden_size"]), "mat"),
-                  ("final_norm", (m["hidden_size"],), "norm")],
-                 seed, EMBED_STREAM, device, dtype)
+    return draw([("embed", (m["vocab_size"], m["hidden_size"]), "mat"),
+                 ("final_norm", (m["hidden_size"],), "norm")],
+                seed, EMBED_STREAM, device, dtype)
 
 
 def head_weight(m: dict, seed: int, device, dtype=torch.bfloat16):
     """The untied LM head [vocab, hidden]; None when tied."""
     if m.get("tie_word_embeddings", False):
         return None
-    return _draw([("head", (m["vocab_size"], m["hidden_size"]), "mat")],
-                 seed, HEAD_STREAM, device, dtype)["head"]
+    return draw([("head", (m["vocab_size"], m["hidden_size"]), "mat")],
+                seed, HEAD_STREAM, device, dtype)["head"]
 
 
 # ---- the uniform index ----------------------------------------------------

@@ -27,10 +27,12 @@ import numpy as np
 import torch
 
 from retrieval_bench import check, flops, gen, program
-from retrieval_bench.reference import decoder, scoring
+from retrieval_bench.reference import scoring
 from retrieval_bench.trace import span
 
 ENGINE_SPANS = ("rb.engine", "rb.read")
+# what the configuration's architecture module has to define for this kind
+ARCH = ("build_encoder", "sparse_reps", "encode_flops")
 
 
 class TokenizeRecorder:
@@ -149,7 +151,7 @@ def run(ctx) -> dict:
     vocab, k, t_sparse = m["vocab_size"], tr["topk"], tr["t_sparse"]
 
     ctx.stage("imports")
-    model = program.build_encoder(conf, seed, dev)
+    model = ctx.arch.build_encoder(conf, seed, dev)
     ctx.stage("weights")
     engine = program.build_engine(conf, k, t_sparse, dev)
     ctx.stage("index")
@@ -203,13 +205,16 @@ def run(ctx) -> dict:
             row_of.setdefault(t, (c, j))
 
     words = np.array([len(t.split()) for t in texts])
+    p50_ms = float(np.percentile(lat, 50))
     record = {
         "window_s": w.seconds,
+        "text_p50_ms": p50_ms,
         "trace": w.summary,
         "counters": {"n_texts": after["n_texts"] - before["n_texts"],
                      "n_encode_batches": after["n_encode_batches"]
                      - before["n_encode_batches"]},
-        "flops": sum(flops.encode_flops(m, int(n)) for n in words),
+        "model": m,
+        "flops": sum(ctx.arch.encode_flops(m, int(n)) for n in words),
         "retrieval_bytes": flops.retrieval_bytes(postings, queries, k),
         "retrieval_spans": ENGINE_SPANS,
     }
@@ -239,7 +244,7 @@ def run(ctx) -> dict:
                                     np.array(p_terms), np.array(p_vals),
                                     served)
     return {"attempted": len(texts), "failed": int(failed.sum()),
-            "e2e": {"text_p50_ms": float(np.percentile(lat, 50)),
+            "e2e": {"text_p50_ms": p50_ms,
                     "text_p99_ms": float(np.percentile(lat, 99))},
             "memory_peak_bytes": peak, "record": record,
             "numbers": numbers, "control": control,
@@ -253,7 +258,7 @@ def judge_sample(ctx, texts, rows, p_terms, p_vals, served) -> tuple:
     m, ix, k = conf["model"], conf["index"], tr["topk"]
     vocab = m["vocab_size"]
     toks = [[int(w[1:]) % vocab for w in t.split()] for t in texts]
-    ref = decoder.sparse_reps(m, seed, toks, dev)
+    ref = ctx.arch.sparse_reps(m, seed, toks, dev)
     refs = scoring.score_queries(ix, vocab, p_terms, p_vals, k,
                                  [s[0] for s in served], dev)
     numbers = {"tokens_mismatch": check.token_mismatches(rows, toks),
@@ -261,7 +266,7 @@ def judge_sample(ctx, texts, rows, p_terms, p_vals, served) -> tuple:
                **check.engine_numbers(served, refs, k)}
     control = None
     if ctx.control:
-        low = decoder.sparse_reps(m, seed, toks, dev, precision="fp8")
+        low = ctx.arch.sparse_reps(m, seed, toks, dev, precision="fp8")
         vals, terms = torch.topk(low, tr["t_sparse"], dim=1)
         vals = vals.clamp_min(0.0)
         c_terms = torch.where(vals > 0, terms, 0).int().cpu().numpy()

@@ -20,8 +20,11 @@ import os
 import time
 
 
-from retrieval_bench import check, flops, gen, program
-from retrieval_bench.reference import training
+from retrieval_bench import check, gen
+from retrieval_bench.reference.training import leaves_of
+
+# what the configuration's architecture module has to define for this kind
+ARCH = ("build_encoder", "train_flops", "lora_factors", "train_steps")
 
 
 def hyper(tr: dict) -> dict:
@@ -38,12 +41,12 @@ def run(ctx) -> dict:
         LLM2RetrieverTrainingArgs, Trainer)
 
     conf, tr, dev, seed = ctx.conf, ctx.traffic, ctx.device, ctx.seed
-    m = conf["model"]
+    m, arch = conf["model"], ctx.arch
     ctx.stage("imports")
-    enc = program.build_encoder(conf, seed, dev, remat=True)
+    enc = arch.build_encoder(conf, seed, dev, remat=True)
     ctx.stage("weights")
-    lora = gen.lora_factors(m, tr["lora_r"], seed, dev)
-    start = {k: v.clone() for k, v in training.leaves_of(lora).items()}
+    lora = arch.lora_factors(m, tr["lora_r"], seed, dev)
+    start = {k: v.clone() for k, v in leaves_of(lora).items()}
     enc.lora = lora
     enc.lora_config = LoraConfig(r=tr["lora_r"], lora_alpha=tr["lora_alpha"],
                                  lora_dropout=tr["lora_dropout"])
@@ -101,21 +104,20 @@ def run(ctx) -> dict:
         elapsed = time.perf_counter() - t0
     gc.unfreeze()
     peak = ctx.memory_peak()
-    record = {"window_s": w.seconds, "trace": w.summary,
-              "flops": flops.train_flops(m, groups, remat=True)
-              * done}
+    record = {"window_s": w.seconds, "trace": w.summary, "model": m,
+              "flops": arch.train_flops(m, groups, remat=True) * done}
     del trainer, enc, lora
     ctx.free()
 
     batches = [batch(s) for s in range(1, n_check + 1)]
-    ref = training.train_steps(m, seed, gen.lora_factors(
+    ref = arch.train_steps(m, seed, arch.lora_factors(
         m, tr["lora_r"], seed, dev), batches, hyper(tr), dev)
     numbers = check.train_numbers(losses, g1, change, ref)
     control = None
     if ctx.control:
         for name, kw in (("fp8", {"precision": "fp8"}),
                          ("half_batch", {"half": True})):
-            low = training.train_steps(m, seed, gen.lora_factors(
+            low = arch.train_steps(m, seed, arch.lora_factors(
                 m, tr["lora_r"], seed, dev), batches, hyper(tr), dev, **kw)
             control = dict(control or {}, **{
                 f"{name}.{k}": v for k, v in check.train_numbers(

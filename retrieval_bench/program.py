@@ -1,9 +1,10 @@
 """How the benchmark hands its inputs to the system under test, the port
-``scaling_retriever_tpu_torch``: the encoder built from the benchmark's
-weights through the port's model classes, and the engine over the
-benchmark's index arrays. The port is imported here and in the kinds,
-never at the top of a module the reference or the tests' import walk
-reads first.
+``scaling_retriever_tpu_torch``, where no architecture is involved: the
+port's model configuration from a published config, and the engine over
+the benchmark's index arrays (an architecture's encoder is built by its
+module in ``archs/``). The port is imported here, in ``archs/`` and in
+the kinds, never at the top of a module the reference or the tests'
+import walk reads first.
 """
 
 from __future__ import annotations
@@ -12,8 +13,6 @@ import torch
 
 from retrieval_bench import gen
 
-_MATS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
-
 
 def model_config(m: dict, **overrides):
     from scaling_retriever_tpu_torch.models.config import ModelConfig
@@ -21,38 +20,6 @@ def model_config(m: dict, **overrides):
     kw = {"dtype": torch.bfloat16, "param_dtype": torch.bfloat16,
           **overrides}
     return ModelConfig.from_hf_config(m, **kw)
-
-
-@torch.no_grad()
-def build_encoder(conf: dict, seed: int, device, **overrides):
-    """The configuration's encoder class (``conf["encoder"]``, a class of
-    the port's ``models.encoder``) over an ``LlamaBiForMNTP`` holding the
-    benchmark's bf16 weights for ``seed``."""
-    from scaling_retriever_tpu_torch.models import encoder
-    from scaling_retriever_tpu_torch.models.llama import LlamaBiForMNTP
-
-    m = conf["model"]
-    cfg = model_config(m, **overrides)
-    with torch.device("meta"):
-        mod = LlamaBiForMNTP(cfg)
-    mod = mod.to_empty(device=device)
-    mod.requires_grad_(False)
-    emb = gen.embed_weights(m, seed, device)
-    mod.embed_tokens.weight.copy_(emb["embed"])
-    mod.final_norm.copy_(emb["final_norm"])
-    del emb
-    if mod.lm_head is not None:
-        mod.lm_head.weight.copy_(gen.head_weight(m, seed, device))
-    for i, layer in enumerate(mod.layers):
-        w = gen.layer_weights(m, seed, i, device)
-        for name in _MATS:
-            getattr(layer, name).weight.copy_(w[name])
-        layer.input_norm.copy_(w["input_norm"])
-        layer.post_attn_norm.copy_(w["post_attn_norm"])
-        if gen.qkv_bias(m):
-            for b, name in (("bq", "wq"), ("bk", "wk"), ("bv", "wv")):
-                getattr(layer, name).bias.copy_(w[b])
-    return getattr(encoder, conf["encoder"])(mod, cfg)
 
 
 def build_engine(conf: dict, topk: int, t_budget: int, device):

@@ -4,8 +4,11 @@
         --seconds <s> --trace <0|1>
 
 Everything is found by name from ``BENCHMARK.json`` at the checkout's root:
-the cell's configuration (``retrieval_bench/configs/<config>.json``), its
-traffic mix (``retrieval_bench/traffic/<mix>.json``, whose ``kind`` names
+the cell's configuration (``retrieval_bench/configs/<config>.json``), the
+architecture module it names (``retrieval_bench/archs/<arch>.py``: the
+port's encoder over the benchmark's weights, the plain reference and the
+FLOP count; its interface is in ``archs/bidir_decoder.py``), its traffic
+mix (``retrieval_bench/traffic/<mix>.json``, whose ``kind`` names
 the driver in ``retrieval_bench/kinds/``), its limits
 (``retrieval_bench/limits/<cell>.json``) and each per-layer metric's reader
 (``retrieval_bench/metrics/<metric>.py``). A run makes its inputs from
@@ -69,13 +72,40 @@ def load_file(path: str, name: str):
     return mod
 
 
+def config_entry(bench: dict, name: str) -> dict:
+    return next(c for c in bench["configs"] if c["name"] == name)
+
+
+def load_arch(root: str, config: dict, conf: dict, kind):
+    """The architecture module that the configuration ``conf`` (whose
+    entry in BENCHMARK.json is ``config``) names under ``"arch"``, loaded
+    from ``retrieval_bench/archs/<arch>.py`` under ``root``, holding every
+    function the traffic's ``kind`` module lists in its ``ARCH``. There is
+    no default: a missing key, file or function ends the run."""
+    where = f"configuration {config['name']} ({config['file']})"
+    if "arch" not in conf:
+        raise SystemExit(f"{where} names no \"arch\": add the key, naming "
+                         f"a module retrieval_bench/archs/<arch>.py")
+    rel = os.path.join("retrieval_bench", "archs", f"{conf['arch']}.py")
+    path = os.path.join(root, rel)
+    if not os.path.isfile(path):
+        raise SystemExit(f"{where} names arch {conf['arch']!r}, but {rel} "
+                         f"does not exist")
+    mod = load_file(path, f"rb_arch_{conf['arch']}")
+    missing = [f for f in getattr(kind, "ARCH", ()) if not hasattr(mod, f)]
+    if missing:
+        raise SystemExit(f"{rel}, the arch of {where}, defines no "
+                         f"{', '.join(missing)}, which the "
+                         f"{kind.__name__.rsplit('.', 1)[-1]} kind needs")
+    return mod
+
+
 def cell_spec(bench: dict, cell: str, root: str = ROOT) -> tuple:
     """(workload entry, configuration file, traffic file) of ``cell``."""
     wl = next((w for w in bench["workloads"] if w["name"] == cell), None)
     if wl is None:
         raise SystemExit(f"no workload {cell!r} in BENCHMARK.json")
-    cf = next(c for c in bench["configs"] if c["name"] == wl["config"])
-    conf = load_json(root, cf["file"])
+    conf = load_json(root, config_entry(bench, wl["config"])["file"])
     traffic = load_json(root, "retrieval_bench", "traffic",
                         f"{wl['traffic']}.json")
     return wl, conf, traffic
@@ -103,7 +133,8 @@ class Window:
 
 @dataclasses.dataclass
 class Context:
-    """What a kind's ``run`` gets."""
+    """What a kind's ``run`` gets; ``arch`` is the configuration's
+    architecture module (``run.load_arch``)."""
 
     cell: str
     conf: dict
@@ -112,6 +143,7 @@ class Context:
     seconds: float
     trace: bool
     device: object
+    arch: object
     control: bool = False
     log: Callable = log
     scratch: str = CACHE
@@ -169,10 +201,11 @@ def run_cell(bench: dict, cell: str, seed: int, seconds: float, trace: bool,
     from retrieval_bench import check
 
     wl, conf_f, traffic_f = cell_spec(bench, cell, root)
-    ctx = Context(cell, conf or conf_f, traffic or traffic_f, seed, seconds,
-                  trace, device, control)
-    kind = importlib.import_module(
-        f"retrieval_bench.kinds.{ctx.traffic['kind']}")
+    conf, traffic = conf or conf_f, traffic or traffic_f
+    kind = importlib.import_module(f"retrieval_bench.kinds.{traffic['kind']}")
+    arch = load_arch(root, config_entry(bench, wl["config"]), conf, kind)
+    ctx = Context(cell, conf, traffic, seed, seconds, trace, device, arch,
+                  control)
     out = kind.run(ctx)
     out["e2e"]["setup_s"] = out["window_start"] - T_START
     entries = metrics_for(bench, cell, trace)

@@ -27,7 +27,8 @@ def tiny_conf(cell: str) -> dict:
         enc = "MistralBiSparse"
     else:
         enc = "Qwen2BiSparse"
-    return {"model": model, "encoder": enc, "index": dict(TINY_INDEX)}
+    return {"model": model, "arch": "bidir_decoder", "encoder": enc,
+            "index": dict(TINY_INDEX)}
 
 
 def tiny_traffic(bench: dict, cell: str) -> dict:

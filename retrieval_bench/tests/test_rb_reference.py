@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from retrieval_bench import check, gen, program
+from retrieval_bench.archs import bidir_decoder
 from retrieval_bench.kinds.stream import served_rows
 from retrieval_bench.reference import decoder, scoring
 from retrieval_bench.tests.helpers import SEED, tiny_conf
@@ -18,8 +19,8 @@ from retrieval_bench.tests.helpers import SEED, tiny_conf
 def test_decoder_matches_the_port_encoder_in_f32(cell):
     conf = tiny_conf(cell)
     m = conf["model"]
-    enc = program.build_encoder(conf, SEED, "cpu", dtype=torch.float32,
-                                param_dtype=torch.float32)
+    enc = bidir_decoder.build_encoder(conf, SEED, "cpu", dtype=torch.float32,
+                                      param_dtype=torch.float32)
     r = gen.rng(SEED, 1)
     toks = [r.integers(2, m["vocab_size"], n).tolist()
             for n in (1, 3, 7, 12, 16)]
