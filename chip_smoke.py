@@ -139,7 +139,18 @@ Phases (any failure raises and exits non-zero):
      4,096-deep prefix, the rescore and its certificate, the doc-major
      fallback): the certified rows, the results and the scan against the
      full-CSR segsort; launch counts read as in 4;
- 12. print the card, per-kernel numbers as one JSON line, and last
+ 12. the routed-expert kernels (csrc/moe.cu: route, the grouped gate/up
+     and down products, the combine) at DeepSeek-V2-Lite's widths (hidden
+     2,048, 64 experts of width 1,408, top-6) and the text cell's tiles (8
+     and 64 texts of 64 positions), each against its plain version and
+     timed beside its bound, its plain version and torch._grouped_mm (the
+     products' yardstick, never called by the port); then
+     DeepSeek-V2-Lite whole at its published widths (15.7B parameters,
+     random bf16 weights, ~31 GB) encoding an 8 x 64 and a 64 x 64 tile
+     eagerly through DeepseekV2BiSparse.encode: each tile's launch counts
+     read from 0 (one of each moe_* kernel per MoE layer, 26 a tile) and
+     its expert-load counter (every position's 6 slots in each MoE layer);
+ 13. print the card, per-kernel numbers as one JSON line, and last
      {"ok": true, "device": {...}}.
 """
 
@@ -186,10 +197,13 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM data sheet, non-tensor f32
 
 
+MOE_KERNELS = ("moe_route", "moe_expert_up", "moe_expert_down",
+               "moe_combine")
 # the kernels each serving path (phase 4), offline path (phase 5), dense
 # path (phase 6), checkpoint and training path (phases 7, 8), hybrid and
-# T5 path (phase 9), sharded path (phase 10a) and power-law path (phase
-# 11) must launch; topm_dense is B5 at its dense site
+# T5 path (phase 9), sharded path (phase 10a), power-law path (phase 11)
+# and DeepSeek-V2 tile (phase 12) must launch; topm_dense is B5 at its
+# dense site
 PATH_KERNELS = {
     "text q8 + pre-encoded f32": ("fetch_f32", "fetch_q8", "segsum", "topm"),
     "pre-encoded bf16": ("fetch_bf16", "segsum", "topm"),
@@ -213,6 +227,8 @@ PATH_KERNELS = {
     "sharded bf16": ("fetch_bf16", "segsum", "topm"),
     "served zipf": ("fetch_f32", "segsum", "topm"),
     "zipf maxscore": ("fetch_f32", "segsum", "topm"),
+    "deepseek 8x64 tile": MOE_KERNELS,
+    "deepseek 64x64 tile": MOE_KERNELS,
 }
 
 
@@ -511,6 +527,184 @@ def log_kernels(report, card_s) -> None:
         log(f"kernel {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}"
             f" ms, library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}) per {TILE}-query tile; card {card_s}")
+
+
+MOE = {"H": 2048, "I": 1408, "E": 64, "K": 6}
+MOE_TILES = ((8, 64), (64, 64))      # (texts, positions) of the text tiles
+
+
+def moe_case(dev, n: int, g: torch.Generator) -> dict:
+    """One MoE layer's inputs for ``n`` tokens: x, a router's top-k of
+    random scores, its weights, every expert's weights, a shared row."""
+    h, i, e, k = MOE["H"], MOE["I"], MOE["E"], MOE["K"]
+
+    def bf(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(
+            torch.bfloat16)
+
+    scores = torch.rand(n, e, generator=g, device=dev)
+    w, ids = torch.topk(scores.softmax(-1), k, dim=1)
+    return {"x": bf(n, h), "ids": ids, "w": w.contiguous(),
+            "w_gu": bf(e, 2 * i, h, std=0.02), "w_d": bf(e, h, i, std=0.02),
+            "shared": bf(n, h, std=0.1)}
+
+
+def moe_close(got, want, what: str) -> None:
+    """bf16 results of float32 sums in another order: within two bf16
+    roundings of the largest value."""
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    check(err <= 2 * 2 ** -8 * top, f"{what}: {err} over {top}")
+
+
+def grouped_mm_ms(a, b, offs, iters: int):
+    """torch._grouped_mm of the sorted rows a against b [E, K, N] (the
+    library's yardstick), or its error's name where it does not run."""
+    try:
+        return time_ms(lambda: torch._grouped_mm(a, b, offs=offs), iters)
+    except (RuntimeError, AttributeError, TypeError) as exc:
+        return f"not run ({type(exc).__name__})"
+
+
+def moe_phase(dev, seed: int, card_s: str) -> list:
+    """Phase 12: each routed-expert kernel against its plain version at the
+    text cell's tiles, timed; returns per-kernel report entries."""
+    from scaling_retriever_tpu_torch.ops import cuda_lib, moe
+
+    h, i, e, k = MOE["H"], MOE["I"], MOE["E"], MOE["K"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    report = []
+    for texts, pos in MOE_TILES:
+        n = texts * pos
+        c = moe_case(dev, n, g)
+        r = moe.route(c["ids"], e)
+        want = moe.route_plain(c["ids"], e)
+        check(all(torch.equal(a, b.to(a.dtype)) for a, b in zip(r, want)),
+              f"moe_route at {n} tokens differs from its plain version")
+        hmid = moe.expert_up(c["x"], r, c["w_gu"], k)
+        moe_close(hmid, moe.expert_up_plain(c["x"], r, c["w_gu"], k),
+                  f"moe_expert_up at {n} tokens")
+        y = moe.expert_down(hmid, r, c["w_d"], c["w"])
+        moe_close(y, moe.expert_down_plain(hmid, r, c["w_d"], c["w"]),
+                  f"moe_expert_down at {n} tokens")
+        check(torch.equal(moe.combine(y, r, c["shared"], k),
+                          moe.combine_plain(y, r, c["shared"], k)),
+              f"moe_combine at {n} tokens differs from its plain version")
+        slots = n * k
+        rows = c["x"][r.order.long() // k]
+        offs = r.offsets[1:].contiguous()
+        cases = {
+            "moe_route": (
+                lambda: moe.route(c["ids"], e),
+                lambda: moe.route_plain(c["ids"], e),
+                None, slots * (8 + 4 + 4) + (e + 1) * 4, 0.0),
+            "moe_expert_up": (
+                lambda: moe.expert_up(c["x"], r, c["w_gu"], k),
+                lambda: moe.expert_up_plain(c["x"], r, c["w_gu"], k),
+                (rows, c["w_gu"].transpose(1, 2)),
+                e * 2 * i * h * 2 + slots * (h + i) * 2,
+                2.0 * slots * h * 2 * i),
+            "moe_expert_down": (
+                lambda: moe.expert_down(hmid, r, c["w_d"], c["w"]),
+                lambda: moe.expert_down_plain(hmid, r, c["w_d"], c["w"]),
+                (hmid, c["w_d"].transpose(1, 2)),
+                e * h * i * 2 + slots * (i + h) * 2, 2.0 * slots * i * h),
+            "moe_combine": (
+                lambda: moe.combine(y, r, c["shared"], k),
+                lambda: moe.combine_plain(y, r, c["shared"], k),
+                None, slots * (h * 2 + 4) + 2 * n * h * 2, 0.0),
+        }
+        for name, (fn, plain, lib, nbytes, ops) in cases.items():
+            before = cuda_lib.LAUNCHES[name]
+            fn()
+            check(cuda_lib.LAUNCHES[name] == before + 1,
+                  f"{name} was not launched")
+            b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+            report.append({
+                "name": name, "tile": f"{texts}x{pos}",
+                "ms": time_ms(fn, 20), "plain_ms": time_ms(plain, 3, 1),
+                "library_ms": (None if lib is None else
+                               grouped_mm_ms(*lib, offs, 20)),
+                "bound_ms": b_ms, "bound_by": b_by})
+        del c, r, want, hmid, y, rows, cases
+    free()
+    for x in report:
+        log(f"kernel {x['name']} at {x['tile']}: {x['ms']:.4f} ms (plain "
+            f"{x['plain_ms']:.4f} ms, library {x['library_ms']}, bound "
+            f"{x['bound_ms']:.4f} ms by {x['bound_by']}); card {card_s}")
+    return report
+
+
+DSV2_LITE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "retrieval_bench", "configs", "deepseek-v2-lite.json")
+
+
+@torch.no_grad()
+def deepseek_phase(dev, seed: int, card_s: str) -> dict:
+    """Phase 12, the model: DeepSeek-V2-Lite at its published widths with
+    random bf16 weights, an eager encode of each text tile through the
+    port's entry point. Returns each tile's launch counts, read from 0
+    over exactly that encode."""
+    from scaling_retriever_tpu_torch.models import deepseek_v2
+    from scaling_retriever_tpu_torch.models.config import ModelConfig
+    from scaling_retriever_tpu_torch.models.encoder import DeepseekV2BiSparse
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+
+    t0 = time.perf_counter()
+    with open(DSV2_LITE) as f:
+        hf = json.load(f)["model"]
+    cfg = ModelConfig.from_hf_config(hf, dtype=torch.bfloat16,
+                                     param_dtype=torch.bfloat16)
+    model = deepseek_v2.empty_model(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for p in model.parameters():
+        if p.dim() == 1:
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, 0.02, generator=g)
+    enc = DeepseekV2BiSparse(model, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_moe = sum(layer.is_moe for layer in model.layers)
+    log(f"DeepSeek-V2-Lite: {n_params} params bf16, {n_moe} MoE layers, "
+        f"random from seed {seed}, on card in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB")
+    rng = np.random.default_rng(seed)
+    paths = {}
+    for texts, pos in MOE_TILES:
+        lens = rng.integers(pos // 2, pos + 1, texts)
+        lens[0] = pos
+        ids = np.zeros((texts, pos), np.int32)
+        mask = np.zeros((texts, pos), np.int32)
+        for i, n in enumerate(lens):
+            ids[i, pos - n:] = rng.integers(2, cfg.vocab_size, n)
+            mask[i, pos - n:] = 1
+        model.reset_expert_load()
+        cuda_lib.reset_launches()
+        reps = enc.encode(ids, mask)
+        torch.cuda.synchronize()
+        counts = dict(cuda_lib.LAUNCHES)
+        tile = f"{texts}x{pos}"
+        paths[f"deepseek {tile} tile"] = counts
+        got = {k_: counts[k_] for k_ in MOE_KERNELS}
+        check(got == dict.fromkeys(MOE_KERNELS, n_moe),
+              f"DeepSeek-V2 {tile} tile launched {got}, expected {n_moe} "
+              f"of each")
+        slots = int(model.expert_load().sum())
+        want = texts * pos * cfg.num_experts_per_tok * n_moe
+        check(slots == want, f"DeepSeek-V2 {tile} tile: the load counter "
+              f"holds {slots} slots, expected {want}")
+        check(tuple(reps.shape) == (texts, cfg.vocab_size)
+              and bool(torch.isfinite(reps).all()),
+              f"DeepSeek-V2 {tile} tile: reps {tuple(reps.shape)} not "
+              f"finite")
+        ms = time_ms(lambda: enc.encode(ids, mask), 5, 1)
+        log(f"DeepSeek-V2 {tile} tile, eager: {got} launches, {slots} "
+            f"slots counted, {ms:.2f} ms an encode; card {card_s}")
+    del enc, model, reps
+    free()
+    return paths
 
 
 def blockmax_kernel_phase(dev, csr, meta, tile):
@@ -4221,12 +4415,24 @@ def run(dev, seed: int, card_s: str) -> list:
         "(cost-aware splits, the hot lane) and maxscore, through B1, B4 "
         "and B5")
     report.append(entry)
+    moe_report = moe_phase(dev, seed, card_s)
+    p12 = deepseek_phase(dev, seed, card_s)
+    for path, counts in p12.items():
+        log(f"launches over the {path} path: {counts}")
+    paths.update(p12)
+    log("phase 12: the routed-expert kernels match their plain versions at "
+        "DeepSeek-V2-Lite's widths and the text tiles, and launch once per "
+        "MoE layer in the whole model's eager tiles")
     for path, kernels in PATH_KERNELS.items():
         missing = [k_ for k_ in kernels if paths[path][k_] == 0]
         check(not missing, f"{missing} not launched on the {path} path: "
               f"{paths[path]}")
     for r in report:
         r["launches"] = sum(p_[r["name"]] for p_ in paths.values())
+    # a routed-expert kernel's launches in the one tile its entry times
+    for r in moe_report:
+        r["launches"] = paths[f"deepseek {r['tile']} tile"][r["name"]]
+    report += moe_report
     check(all(r["launches"] > 0 for r in report),
           f"a kernel was not launched on the main paths: {paths}")
     return report

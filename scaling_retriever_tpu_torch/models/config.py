@@ -2,7 +2,11 @@
 
 Field names follow the HF ``config.json`` vocabulary. The defaults are the
 Llama-3.2-1B widths, but ``rope_scaling`` defaults to None; the published
-checkpoint uses llama3 scaling, which ``LLAMA_3_2_1B`` carries.
+checkpoint uses llama3 scaling, which ``LLAMA_3_2_1B`` carries. The
+DeepSeek-V2 fields (latent attention and the mixture of experts,
+``models/deepseek_v2.py``) default to values that change nothing for the
+Llama family; a DeepSeek-V2 setting the port does not implement raises,
+naming its key.
 """
 
 from __future__ import annotations
@@ -61,11 +65,58 @@ class ModelConfig:
     # saved; the latter not the attention products), or "names:..." over
     # the layer's named tensors (models/llama.py REMAT_NAMES)
     remat: Any = False
+    # DeepSeek-V2: latent attention (MLA) ...
+    kv_lora_rank: Optional[int] = None
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: Optional[int] = None
+    qk_rope_head_dim: Optional[int] = None
+    v_head_dim: Optional[int] = None
+    # ... and the mixture of experts
+    n_routed_experts: Optional[int] = None
+    n_shared_experts: Optional[int] = None
+    num_experts_per_tok: Optional[int] = None
+    moe_intermediate_size: Optional[int] = None
+    first_k_dense_replace: int = 0
+    moe_layer_freq: int = 1
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+    scoring_func: str = "softmax"
+    topk_method: str = "greedy"
+
+    def __post_init__(self):
+        if self.model_type != "deepseek_v2":
+            return
+        unsupported = {
+            "q_lora_rank": (self.q_lora_rank is not None,
+                            "query compression"),
+            "scoring_func": (self.scoring_func != "softmax",
+                             "router scores other than softmax"),
+            "topk_method": (self.topk_method != "greedy",
+                            "expert choice other than greedy top-k "
+                            "(group-limited, noaux_tc)"),
+        }
+        for key, (bad, what) in unsupported.items():
+            if bad:
+                raise NotImplementedError(
+                    f"DeepSeek-V2 {key}={getattr(self, key)!r}: the port "
+                    f"implements no {what}")
 
     @property
     def head_dim_(self) -> int:
         return (self.head_dim if self.head_dim is not None
                 else self.hidden_size // self.num_attention_heads)
+
+    @property
+    def rope_dim(self) -> int:
+        """The width rope rotates: DeepSeek-V2's rope part of a head, else
+        the whole head."""
+        return self.qk_rope_head_dim or self.head_dim_
+
+    def is_moe_layer(self, i: int) -> bool:
+        """Whether layer ``i`` runs the mixture of experts (HF
+        DeepSeek-V2's rule)."""
+        return (bool(self.n_routed_experts) and i >= self.first_k_dense_replace
+                and i % self.moe_layer_freq == 0)
 
     @property
     def q_dim(self) -> int:

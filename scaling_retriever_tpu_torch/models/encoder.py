@@ -1,5 +1,6 @@
 """Retriever encoders (port of models/encoder.py): the sparse and dense
-classes of the Llama, Qwen2 and Mistral families, their training losses
+classes of the Llama, Qwen2 and Mistral families and of DeepSeek-V2
+(``models/deepseek_v2.py``, inference only), their training losses
 (``loss_forward``), checkpoint and adapter loading and saving, and the
 model registry (the T5 family lives in ``models/t5_encoder.py``).
 
@@ -341,6 +342,47 @@ class MistralBiDense(DecoderOnlyBiDense):
     BASE_MODEL_CLASS = "MistralBiModel"
 
 
+class _InferenceOnly:
+    """DeepSeek-V2's encoders: its module takes no LoRA, so neither an
+    adapter to load nor one to train, and it writes no checkpoint."""
+
+    def __init__(self, params, config, lora=None, lora_config=None,
+                 T: float = 1.0):
+        if lora is not None:
+            raise NotImplementedError(
+                f"{type(self).__name__}: DeepSeek-V2 runs inference only in "
+                f"the port, with no LoRA")
+        super().__init__(params, config, None, None, T=T)
+
+    @classmethod
+    def load(cls, model_name_or_path: str,
+             lora_name_or_path: Optional[str] = None, *a, **kw):
+        if lora_name_or_path:
+            raise NotImplementedError(
+                f"{cls.__name__}: DeepSeek-V2 runs inference only in the "
+                f"port, with no adapter")
+        return super().load(model_name_or_path, None, *a, **kw)
+
+    def save_pretrained(self, save_dir: str) -> None:
+        raise NotImplementedError(
+            f"{type(self).__name__}: DeepSeek-V2 runs inference only in the "
+            f"port, with no checkpoint to write")
+
+    def save_trained(self, trainable, out_dir: str,
+                     use_lora: bool = True) -> None:
+        self.save_pretrained(out_dir)
+
+
+class DeepseekV2BiSparse(_InferenceOnly, DecoderOnlyBiSparse):
+    MODEL_TYPE = "deepseek_v2"
+    BASE_MODEL_CLASS = "DeepseekV2BiForMNTP"
+
+
+class DeepseekV2BiDense(_InferenceOnly, DecoderOnlyBiDense):
+    MODEL_TYPE = "deepseek_v2"
+    BASE_MODEL_CLASS = "DeepseekV2BiForMNTP"
+
+
 def _variant(base, loss_type, name):
     cls = type(name, (base,), {"LOSS_TYPE": loss_type})
     cls.__module__ = __name__
@@ -422,10 +464,16 @@ for _loss in ("nce", "margin_mse", "kldiv", "nce_kldiv"):
         else _variant(MistralBiDense, _loss, f"MistralBiDenseFor{_loss}"))
 
 
+MODEL_REGISTRY[("deepseek_v2", "sparse", "nce")] = DeepseekV2BiSparse
+MODEL_REGISTRY[("deepseek_v2", "dense", "nce")] = DeepseekV2BiDense
+
+_FAMILIES = ("qwen2", "mistral", "deepseek_v2")
+
+
 def encoder_class(model_dir: str, pooling: str):
     """The eval CLIs' dispatch: ``model_type`` from the directory's
-    ``config.json`` picks the family (an adapter directory's config, or
-    none, means Llama)."""
+    ``config.json`` picks the family (an adapter directory's config, none,
+    or a type of no family here means Llama)."""
     model_type = "llama"
     cfg_path = os.path.join(model_dir, "config.json")
     if os.path.isdir(model_dir) and os.path.exists(cfg_path):
@@ -434,7 +482,7 @@ def encoder_class(model_dir: str, pooling: str):
         model_type = cfg.get("model_type", "llama")
         if "peft_type" in cfg:
             model_type = "llama"
-    if model_type not in ("qwen2", "mistral"):
+    if model_type not in _FAMILIES:
         model_type = "llama"
     return MODEL_REGISTRY[(model_type, pooling, "nce")]
 

@@ -82,10 +82,36 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return weight * xf.to(x.dtype)
 
 
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """YaRN's attention-temperature factor (HF DeepSeek-V2's
+    ``yarn_get_mscale``)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def _yarn_inv_freq(inv_freq: torch.Tensor, rs: dict, dim: int,
+                   base: float) -> torch.Tensor:
+    """HF DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding`` frequencies:
+    interpolated (divided by the factor) below the correction range,
+    extrapolated (as they are) above it, a linear ramp between."""
+    old_len = rs["original_max_position_embeddings"]
+
+    def corr_dim(rotations: float) -> float:
+        return (dim * math.log(old_len / (rotations * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    low = max(math.floor(corr_dim(rs.get("beta_fast", 32))), 0)
+    high = min(math.ceil(corr_dim(rs.get("beta_slow", 1))), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32) - low)
+            / (high - low)).clamp(0, 1)
+    return inv_freq / rs["factor"] * ramp + inv_freq * (1 - ramp)
+
+
 def rope_inv_freq(config: ModelConfig) -> torch.Tensor:
-    """Inverse frequencies (float32, CPU), with HF-compatible llama3 and
-    linear rope scaling."""
-    hd = config.head_dim_
+    """Inverse frequencies (float32, CPU) over ``config.rope_dim``, with
+    HF-compatible llama3, linear and yarn rope scaling."""
+    hd = config.rope_dim
     inv_freq = 1.0 / (config.rope_theta
                       ** (torch.arange(0, hd, 2, dtype=torch.float32) / hd))
     rs = config.rope_scaling
@@ -109,18 +135,33 @@ def rope_inv_freq(config: ModelConfig) -> torch.Tensor:
         smoothed = (1 - smooth) * scaled / factor + smooth * scaled
         is_medium = (wavelen >= high_wavelen) & (wavelen <= low_wavelen)
         return torch.where(is_medium, smoothed, scaled)
+    if rope_type == "yarn":
+        return _yarn_inv_freq(inv_freq, rs, hd, config.rope_theta)
     raise NotImplementedError(f"rope_scaling type {rope_type!r}")
+
+
+def _rope_mscale(config: ModelConfig) -> float:
+    """The factor on yarn's cos and sin tables: mscale(factor, mscale) /
+    mscale(factor, mscale_all_dim) (1 for every other rope type)."""
+    rs = config.rope_scaling or {}
+    if rs.get("rope_type", rs.get("type")) != "yarn":
+        return 1.0
+    return (yarn_mscale(rs["factor"], rs.get("mscale", 1))
+            / yarn_mscale(rs["factor"], rs.get("mscale_all_dim", 0)))
 
 
 def rope_cos_sin(config: ModelConfig, seq_len: int, device
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """[seq_len, head_dim] float32 cos/sin tables (HF layout: freqs
+    """[seq_len, rope_dim] float32 cos/sin tables (HF layout: freqs
     doubled)."""
     inv_freq = rope_inv_freq(config).to(device)
     pos = torch.arange(seq_len, dtype=torch.float32, device=device)
     freqs = pos[:, None] * inv_freq[None, :]
     emb = torch.cat([freqs, freqs], dim=-1)
-    return emb.cos(), emb.sin()
+    m = _rope_mscale(config)
+    if m == 1.0:
+        return emb.cos(), emb.sin()
+    return emb.cos() * m, emb.sin() * m
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:

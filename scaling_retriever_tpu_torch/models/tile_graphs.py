@@ -33,7 +33,7 @@ from typing import Callable
 import torch
 
 from scaling_retriever_tpu_torch.models import llama
-from scaling_retriever_tpu_torch.utils.profiling import profile_span
+from scaling_retriever_tpu_torch.utils.profiling import profile_span, tracing
 
 _local = threading.local()   # .capture: inside capture_tiles(); .replays
 
@@ -92,7 +92,14 @@ class _Tile:
             self.ids.copy_(torch.as_tensor(ids))
             self.mask.copy_(torch.as_tensor(mask))
         width, rung = self.ids.shape
-        with profile_span("encoder.graph", width=width, rung=rung):
+        # the tile's real positions, summed from the host's mask only while
+        # a profiler session records the span
+        tokens = None
+        if tracing():
+            host = torch.as_tensor(mask)
+            tokens = int(host.sum()) if host.device.type == "cpu" else None
+        with profile_span("encoder.graph", width=width, rung=rung,
+                          tokens=tokens):
             self.graph.replay()
             # fresh tensors: the next replay rewrites the static outputs
             out = tuple(x.clone() for x in self.out)

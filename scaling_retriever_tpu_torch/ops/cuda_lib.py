@@ -31,7 +31,7 @@ from scaling_retriever_tpu_torch.utils.utils import build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
-SOURCES = ("fetch.cu", "segsum.cu", "topm.cu", "topm_rounds.cu")
+SOURCES = ("fetch.cu", "segsum.cu", "topm.cu", "topm_rounds.cu", "moe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
@@ -50,12 +50,19 @@ SIGNATURES = {
     "srt_topm": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
     # the earlier top-m design, for chip_smoke.py's before/after timing only
     "srt_topm_rounds": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
+    # the routed-expert layer (ops/moe.py)
+    "srt_moe_route": [_P, _I32, _I32] + [_P] * 5,
+    "srt_moe_expert_up": [_P] * 5 + [_I32] * 5 + [_P],
+    "srt_moe_expert_down": [_P] * 6 + [_I32] * 4 + [_P],
+    "srt_moe_combine": [_P] * 4 + [_I32] * 3 + [_P],
 }
 
 # fetch_f32_blockmax counts B1's second call site (ops/blockmax.py),
 # topm_dense B5's dense call site (index/dense_index.py)
 LAUNCHES = {"fetch_f32": 0, "fetch_f32_blockmax": 0, "fetch_q8": 0,
-            "fetch_bf16": 0, "segsum": 0, "topm": 0, "topm_dense": 0}
+            "fetch_bf16": 0, "segsum": 0, "topm": 0, "topm_dense": 0,
+            "moe_route": 0, "moe_expert_up": 0, "moe_expert_down": 0,
+            "moe_combine": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -27,7 +27,8 @@ tile eagerly.
 Spans (``utils/profiling.py``): on the dispatch thread ``frontend.dispatch``
 a tile (attrs: tile id, width, real rows, length rung) around
 ``frontend.tokenize``, the encoder's spans (a replayed tile:
-``encoder.upload`` and ``encoder.graph``, attrs width and rung) and
+``encoder.upload`` and ``encoder.graph``, attrs width, rung and the
+tile's real positions ``tokens``) and
 ``engine.launch``; on the resolver ``frontend.pending`` (from the tile's
 dispatch end until the resolver takes it), ``engine.read`` and
 ``frontend.deliver``. While a

@@ -173,7 +173,16 @@ def test_registry_matches_reference():
         encoder.MODEL_REGISTRY[key]
         ref_encoder.MODEL_REGISTRY[key]
     want = dict(ref_encoder.MODEL_REGISTRY)
-    assert set(encoder.MODEL_REGISTRY) == set(want)
+    # DeepSeek-V2 is the port's own family (no counterpart in the JAX
+    # package): every other key matches the reference's
+    port_only = {("deepseek_v2", "sparse", "nce"):
+                 encoder.DeepseekV2BiSparse,
+                 ("deepseek_v2", "dense", "nce"): encoder.DeepseekV2BiDense}
+    assert set(encoder.MODEL_REGISTRY) == set(want) | set(port_only)
+    for key, cls in port_only.items():
+        assert encoder.MODEL_REGISTRY[key] is cls
+        assert (cls.MODEL_TYPE, cls.POOLING, cls.BASE_MODEL_CLASS) == (
+            "deepseek_v2", key[1], "DeepseekV2BiForMNTP")
     assert set(t5_keys) <= set(want)
     for key, cls in want.items():
         port = encoder.MODEL_REGISTRY[key]

@@ -98,8 +98,10 @@ def test_model_loss_forward_matches_reference(tiny_config):
 
     (_, want), wg = jax.jit(jax.value_and_grad(total, has_aux=True))(lora)
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
-    pcfg = ModelConfig(**{k: getattr(cfg, k) for k in fields
-                          if k not in ("dtype", "param_dtype", "remat")})
+    pcfg = ModelConfig(**{f.name: getattr(cfg, f.name)
+                          for f in dataclasses.fields(cfg)
+                          if f.name in fields and f.name not in
+                          ("dtype", "param_dtype", "remat")})
     port = mntp.MNTPModel(
         params_from_jax(jax.tree_util.tree_map(np.asarray, params), pcfg,
                         "cpu"), pcfg,

@@ -338,9 +338,11 @@ def test_text_slice_matches_jax_stack(tiny_config):
             ref_encoder.LlamaBiSparse(params, cfg), T),
         fake_tokenize, widths=(8,), t_sparse=T)
 
+    known = {f.name for f in dataclasses.fields(ModelConfig)}
     pcfg = ModelConfig(**{f.name: getattr(cfg, f.name)
-                          for f in dataclasses.fields(ModelConfig)
-                          if f.name not in ("dtype", "param_dtype")})
+                          for f in dataclasses.fields(cfg)
+                          if f.name in known
+                          and f.name not in ("dtype", "param_dtype")})
     model = LlamaBiSparse(params_from_jax(
         jax.tree_util.tree_map(np.asarray, params), pcfg, "cpu"), pcfg)
     idx = SparseIndex.from_triples(*tri)
