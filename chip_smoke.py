@@ -142,9 +142,11 @@ Phases (any failure raises and exits non-zero):
  12. the routed-expert kernels (csrc/moe.cu: route, the grouped gate/up
      and down products, the combine) at DeepSeek-V2-Lite's widths (hidden
      2,048, 64 experts of width 1,408, top-6) and the text cell's tiles (8
-     and 64 texts of 64 positions), each against its plain version and
-     timed beside its bound, its plain version and torch._grouped_mm (the
-     products' yardstick, never called by the port); then
+     and 64 texts of 64 positions) under random and pad-like routing, each
+     against its plain version (the products also launched twice, bit for
+     bit) and timed beside its bound, its plain version and
+     torch._grouped_mm (the products' yardstick, never called by the
+     port); then
      DeepSeek-V2-Lite whole at its published widths (15.7B parameters,
      random bf16 weights, ~31 GB) encoding an 8 x 64 and a 64 x 64 tile
      eagerly through DeepseekV2BiSparse.encode: each tile's launch counts
@@ -531,11 +533,16 @@ def log_kernels(report, card_s) -> None:
 
 MOE = {"H": 2048, "I": 1408, "E": 64, "K": 6}
 MOE_TILES = ((8, 64), (64, 64))      # (texts, positions) of the text tiles
+# the routings phase 12 times: the router's spread, and the text cell's
+# tiles, where about a quarter of the positions are pads that all route to
+# the same 6 experts (each of them ~1,000 extra slots at 64 x 64)
+MOE_ROUTINGS = ("random", "pad")
 
 
-def moe_case(dev, n: int, g: torch.Generator) -> dict:
+def moe_case(dev, n: int, g: torch.Generator, routing: str) -> dict:
     """One MoE layer's inputs for ``n`` tokens: x, a router's top-k of
-    random scores, its weights, every expert's weights, a shared row."""
+    random scores (``pad``: a quarter of the tokens on experts 0-5), its
+    weights, every expert's weights, a shared row."""
     h, i, e, k = MOE["H"], MOE["I"], MOE["E"], MOE["K"]
 
     def bf(*shape, std=1.0):
@@ -543,6 +550,8 @@ def moe_case(dev, n: int, g: torch.Generator) -> dict:
             torch.bfloat16)
 
     scores = torch.rand(n, e, generator=g, device=dev)
+    if routing == "pad":
+        scores[:n // 4, :k] += 2.0
     w, ids = torch.topk(scores.softmax(-1), k, dim=1)
     return {"x": bf(n, h), "ids": ids, "w": w.contiguous(),
             "w_gu": bf(e, 2 * i, h, std=0.02), "w_d": bf(e, h, i, std=0.02),
@@ -568,25 +577,30 @@ def grouped_mm_ms(a, b, offs, iters: int):
 
 def moe_phase(dev, seed: int, card_s: str) -> list:
     """Phase 12: each routed-expert kernel against its plain version at the
-    text cell's tiles, timed; returns per-kernel report entries."""
+    text cell's tiles under each of ``MOE_ROUTINGS``, timed; returns
+    per-kernel report entries."""
     from scaling_retriever_tpu_torch.ops import cuda_lib, moe
 
     h, i, e, k = MOE["H"], MOE["I"], MOE["E"], MOE["K"]
     g = torch.Generator(device=dev).manual_seed(seed)
     report = []
-    for texts, pos in MOE_TILES:
+    for (texts, pos), routing in itertools.product(MOE_TILES, MOE_ROUTINGS):
         n = texts * pos
-        c = moe_case(dev, n, g)
+        c = moe_case(dev, n, g, routing)
         r = moe.route(c["ids"], e)
         want = moe.route_plain(c["ids"], e)
         check(all(torch.equal(a, b.to(a.dtype)) for a, b in zip(r, want)),
               f"moe_route at {n} tokens differs from its plain version")
         hmid = moe.expert_up(c["x"], r, c["w_gu"], k)
         moe_close(hmid, moe.expert_up_plain(c["x"], r, c["w_gu"], k),
-                  f"moe_expert_up at {n} tokens")
+                  f"moe_expert_up at {n} tokens, {routing}")
+        check(torch.equal(moe.expert_up(c["x"], r, c["w_gu"], k), hmid),
+              f"moe_expert_up at {n} tokens: two launches differ")
         y = moe.expert_down(hmid, r, c["w_d"], c["w"])
         moe_close(y, moe.expert_down_plain(hmid, r, c["w_d"], c["w"]),
-                  f"moe_expert_down at {n} tokens")
+                  f"moe_expert_down at {n} tokens, {routing}")
+        check(torch.equal(moe.expert_down(hmid, r, c["w_d"], c["w"]), y),
+              f"moe_expert_down at {n} tokens: two launches differ")
         check(torch.equal(moe.combine(y, r, c["shared"], k),
                           moe.combine_plain(y, r, c["shared"], k)),
               f"moe_combine at {n} tokens differs from its plain version")
@@ -621,7 +635,7 @@ def moe_phase(dev, seed: int, card_s: str) -> list:
                   f"{name} was not launched")
             b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
             report.append({
-                "name": name, "tile": f"{texts}x{pos}",
+                "name": name, "tile": f"{texts}x{pos}", "routing": routing,
                 "ms": time_ms(fn, 20), "plain_ms": time_ms(plain, 3, 1),
                 "library_ms": (None if lib is None else
                                grouped_mm_ms(*lib, offs, 20)),
@@ -629,9 +643,10 @@ def moe_phase(dev, seed: int, card_s: str) -> list:
         del c, r, want, hmid, y, rows, cases
     free()
     for x in report:
-        log(f"kernel {x['name']} at {x['tile']}: {x['ms']:.4f} ms (plain "
-            f"{x['plain_ms']:.4f} ms, library {x['library_ms']}, bound "
-            f"{x['bound_ms']:.4f} ms by {x['bound_by']}); card {card_s}")
+        log(f"kernel {x['name']} at {x['tile']}, {x['routing']} routing: "
+            f"{x['ms']:.4f} ms (plain {x['plain_ms']:.4f} ms, library "
+            f"{x['library_ms']}, bound {x['bound_ms']:.4f} ms by "
+            f"{x['bound_by']}); card {card_s}")
     return report
 
 

@@ -51,9 +51,9 @@ SIGNATURES = {
     # the earlier top-m design, for chip_smoke.py's before/after timing only
     "srt_topm_rounds": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
     # the routed-expert layer (ops/moe.py)
-    "srt_moe_route": [_P, _I32, _I32] + [_P] * 5,
-    "srt_moe_expert_up": [_P] * 5 + [_I32] * 5 + [_P],
-    "srt_moe_expert_down": [_P] * 6 + [_I32] * 4 + [_P],
+    "srt_moe_route": [_P, _I32, _I32] + [_P] * 6,
+    "srt_moe_expert_up": [_P] * 6 + [_I32] * 5 + [_P],
+    "srt_moe_expert_down": [_P] * 7 + [_I32] * 4 + [_P],
     "srt_moe_combine": [_P] * 4 + [_I32] * 3 + [_P],
 }
 

@@ -10,8 +10,9 @@ data-dependent shape:
 
 * ``route``: each expert's slot count, their exclusive offsets, the
   expert-sorted slot list (``order``, slots in slot order within an
-  expert) and its inverse (``inv``), and the count added to a persistent
-  load counter (kernel ``moe_route``);
+  expert) and its inverse (``inv``), the count added to a persistent
+  load counter, and the two products' work counters zeroed (kernel
+  ``moe_route``);
 * ``expert_up``: for each expert, its slots' token rows of x (gathered
   inside the kernel) times the expert's fused [W_g; W_u], and
   ``silu(g) * u`` → the [N * k, I] intermediate in sorted order
@@ -40,12 +41,16 @@ import torch.nn.functional as F
 from scaling_retriever_tpu_torch.ops import cuda_lib
 
 MAX_EXPERTS = 64      # the products' block finds its expert in one warp
+ROW_TILE = 128        # the products' rows a work item (csrc/moe.cu BM)
 
 
 class Routing(NamedTuple):
     offsets: torch.Tensor   # [E + 1] int32: expert e's slots at [o[e], o[e+1])
     order: torch.Tensor     # [N * k] int32: the slot at each sorted position
     inv: torch.Tensor       # [N * k] int32: each slot's sorted position
+    # [2] int32, zero: the up and the down product's work-item counters
+    # (each launch leaves its own at zero again)
+    work: torch.Tensor
 
 
 def _on_card(t: torch.Tensor, name: str) -> bool:
@@ -70,7 +75,8 @@ def route_plain(ids: torch.Tensor, n_experts: int,
     inv[order] = torch.arange(len(order), device=ids.device)
     if load is not None:
         load += counts
-    return Routing(offsets.int(), order.int(), inv.int())
+    return Routing(offsets.int(), order.int(), inv.int(),
+                   torch.zeros(2, dtype=torch.int32, device=ids.device))
 
 
 def _expert_rows(routing: Routing, e: int) -> slice:
@@ -142,10 +148,12 @@ def route(ids: torch.Tensor, n_experts: int,
     offsets = torch.empty(n_experts + 1, dtype=torch.int32, device=dev)
     order = torch.empty(n_slots, dtype=torch.int32, device=dev)
     inv = torch.empty(n_slots, dtype=torch.int32, device=dev)
+    work = torch.empty(2, dtype=torch.int32, device=dev)
     cuda_lib.launch("moe_route", "srt_moe_route", dev, ids.data_ptr(),
                     n_slots, n_experts, offsets.data_ptr(), order.data_ptr(),
-                    inv.data_ptr(), None if load is None else load.data_ptr())
-    return Routing(offsets, order, inv)
+                    inv.data_ptr(), None if load is None else load.data_ptr(),
+                    work.data_ptr())
+    return Routing(offsets, order, inv, work)
 
 
 def expert_up(x: torch.Tensor, routing: Routing, w_gu: torch.Tensor,
@@ -158,16 +166,18 @@ def expert_up(x: torch.Tensor, routing: Routing, w_gu: torch.Tensor,
     n_e, two_i, h = w_gu.shape
     cuda_lib.check_cuda("x", x, torch.bfloat16, dev)
     cuda_lib.check_cuda("w_gu", w_gu, torch.bfloat16, dev)
-    if x.shape[1] != h or h % 32 or two_i % 128:
-        raise ValueError(f"expert_up takes x [N, H] with H % 32 == 0 and "
-                         f"w_gu [E, 2I, H] with I % 64 == 0, got "
+    if x.shape[1] != h or h % 64 or two_i % 256:
+        raise ValueError(f"expert_up takes x [N, H] with H % 64 == 0 and "
+                         f"w_gu [E, 2I, H] with I % 128 == 0, got "
                          f"{tuple(x.shape)} and {tuple(w_gu.shape)}")
     n_slots = len(routing.order)
     out = torch.empty(n_slots, two_i // 2, dtype=torch.bfloat16, device=dev)
-    cuda_lib.launch("moe_expert_up", "srt_moe_expert_up", dev, x.data_ptr(),
-                    w_gu.data_ptr(), routing.offsets.data_ptr(),
-                    routing.order.data_ptr(), out.data_ptr(), n_slots, n_e, k,
-                    h, two_i // 2)
+    if n_slots:
+        cuda_lib.launch("moe_expert_up", "srt_moe_expert_up", dev,
+                        x.data_ptr(), w_gu.data_ptr(),
+                        routing.offsets.data_ptr(), routing.order.data_ptr(),
+                        out.data_ptr(), routing.work.data_ptr(), n_slots,
+                        n_e, k, h, two_i // 2)
     return out
 
 
@@ -183,16 +193,18 @@ def expert_down(hmid: torch.Tensor, routing: Routing, w_d: torch.Tensor,
     cuda_lib.check_cuda("hmid", hmid, torch.bfloat16, dev)
     cuda_lib.check_cuda("w_d", w_d, torch.bfloat16, dev)
     cuda_lib.check_cuda("weights", weights, torch.float32, dev)
-    if hmid.shape[1] != n_i or h % 128 or n_i % 32:
-        raise ValueError(f"expert_down takes w_d [E, H, I] with H % 128 == "
-                         f"0 and I % 32 == 0 over hmid [N * k, I], got "
+    if hmid.shape[1] != n_i or h % 256 or n_i % 64:
+        raise ValueError(f"expert_down takes w_d [E, H, I] with H % 256 == "
+                         f"0 and I % 64 == 0 over hmid [N * k, I], got "
                          f"{tuple(w_d.shape)} and {tuple(hmid.shape)}")
     n_slots = len(routing.order)
     out = torch.empty(n_slots, h, dtype=torch.bfloat16, device=dev)
-    cuda_lib.launch("moe_expert_down", "srt_moe_expert_down", dev,
-                    hmid.data_ptr(), w_d.data_ptr(), weights.data_ptr(),
-                    routing.offsets.data_ptr(), routing.order.data_ptr(),
-                    out.data_ptr(), n_slots, n_e, h, n_i)
+    if n_slots:
+        cuda_lib.launch("moe_expert_down", "srt_moe_expert_down", dev,
+                        hmid.data_ptr(), w_d.data_ptr(), weights.data_ptr(),
+                        routing.offsets.data_ptr(), routing.order.data_ptr(),
+                        out.data_ptr(), routing.work[1:].data_ptr(), n_slots,
+                        n_e, h, n_i)
     return out
 
 

@@ -169,6 +169,46 @@ def test_the_plain_expert_layer_is_a_per_expert_loop():
                        ids.flatten()[r.order.long()].sort().values)
 
 
+@pytest.mark.parametrize("tokens,k", [
+    (8 * 64, 6),         # the text cell's 8-wide tile: 48 slots an expert
+    (64 * 64, 6),        # its 64-wide tile: 384 slots an expert
+    (1366, 6),
+    (7, 2),
+    (1, 1)])
+def test_the_products_launch_one_kernel_each_on_the_routings_counters(
+        monkeypatch, tokens, k):
+    """Each product launches its one kernel, counted under its own name,
+    with the routing's work counter of its own (up the first, down the
+    second); ``cuda_lib.launch`` is recorded here instead of run."""
+    e, h, i = 64, 256, 128
+    calls = []
+    monkeypatch.setattr(moe, "_on_card", lambda t, name: True)
+    monkeypatch.setattr(moe.cuda_lib, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(moe.cuda_lib, "launch",
+                        lambda key, entry, dev, *args: calls.append(
+                            (key, entry, args)))
+    r = moe.route_plain(torch.zeros(tokens, k, dtype=torch.int64), e)
+    assert torch.equal(r.work, torch.zeros(2, dtype=torch.int32))
+    bf16 = torch.bfloat16
+    hmid = moe.expert_up(torch.empty(tokens, h, dtype=bf16), r,
+                         torch.empty(e, 2 * i, h, dtype=bf16), k)
+    y = moe.expert_down(hmid, r, torch.empty(e, h, i, dtype=bf16),
+                        torch.empty(tokens, k))
+    assert (hmid.shape, y.shape) == ((tokens * k, i), (tokens * k, h))
+    (up, up_entry, up_args), (down, down_entry, down_args) = calls
+    assert (up, up_entry, down, down_entry) == (
+        "moe_expert_up", "srt_moe_expert_up", "moe_expert_down",
+        "srt_moe_expert_down")
+    work = r.work.data_ptr()
+    assert (up_args[5], down_args[6]) == (work, work + 4)
+    assert up_args[6:] == (tokens * k, e, k, h, i)
+    assert down_args[7:] == (tokens * k, e, h, i)
+    # the keys the products count under name the kernel, as the
+    # benchmark's readers find the kernels by ``moe_expert``
+    assert [key for key in moe.cuda_lib.LAUNCHES if "moe_expert" in key] == [
+        "moe_expert_up", "moe_expert_down"]
+
+
 def test_the_expert_load_counts_every_slot(enc):
     enc.params.reset_expert_load()
     ids, mask = _left_padded(_texts())
