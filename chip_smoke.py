@@ -15,8 +15,7 @@ Phases (any failure raises and exits non-zero):
      block-max site on a real pass-1 job table), timing kernel, plain
      version and, where one exists, a single PyTorch call computing the
      same function; B5 also on tied, signed-zero and all -inf blocks and
-     over its (m, block) range, and timed on a slab of ties and in its
-     earlier round-loop design (csrc/topm_rounds.cu, timing only);
+     over its (m, block) range, and timed on a slab of ties;
   3. run 64-query tiles through SegsortEngine on the three layouts and
      compare the kernel path's top-1000 with the plain path's (tie-equal;
      bf16 also with the f32 engine), a small index against a brute-force
@@ -434,8 +433,7 @@ def kernel_phase(dev, eng_f32, eng_q8, eng_bf16, tile, card_s):
                and (i[:8, :4, 4:] == 0).all()),
           "exhausted blocks must return their lanes, then repeat lane 0")
     n_cases = topm_cases(out)
-    # the same shape with every block all ties, and the earlier round-loop
-    # design (csrc/topm_rounds.cu) on the engine slab
+    # the same shape with every block all ties
     nblk = P // block
     ties = torch.full_like(out, 1.5)
     v, i = topm.block_topm(ties, m, block)
@@ -443,16 +441,6 @@ def kernel_phase(dev, eng_f32, eng_q8, eng_bf16, tile, card_s):
     check(torch.equal(v, pv) and torch.equal(i, pi)
           and bool((i == torch.arange(m, device=dev)).all()),
           "B5 on the tie slab != plain, or not the lowest m lanes")
-    pv, pi = topm.block_topm_plain(out, m, block)
-    rv, ri = torch.empty_like(pv), torch.empty_like(pi)
-
-    def rounds():
-        check(topm_rounds(out, rv, ri, nblk, block, m) == 0,
-              "srt_topm_rounds launch failed")
-
-    rounds()
-    check(torch.equal(rv, pv) and torch.equal(ri, pi),
-          "the earlier top-m design != plain")
     b_ms, b_by = bound(TILE * P * 4 + TILE * nblk * m * 8, TILE * P)
     report.append({
         "name": "topm", "route": "cuda",
@@ -465,25 +453,13 @@ def kernel_phase(dev, eng_f32, eng_q8, eng_bf16, tile, card_s):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(
             lambda: torch.topk(out.view(TILE, nblk, block), m), 20),
-        "tie_ms": time_ms(lambda: topm.block_topm(ties, m, block), 20),
-        "before_ms": time_ms(rounds, 20)})
+        "tie_ms": time_ms(lambda: topm.block_topm(ties, m, block), 20)})
     r = report[-1]
     log(f"B5 top-m at [{TILE}, {P}], block {block}, m {m}: engine slab "
-        f"{r['ms']:.4f} ms, tie slab {r['tie_ms']:.4f} ms, earlier round-loop"
-        f" design {r['before_ms']:.4f} ms, torch.topk {r['library_ms']:.4f} "
-        f"ms, bound {b_ms:.4f} ms; == plain on the engine slab, the tie slab"
-        f" and {n_cases} more slabs; card {card_s}")
+        f"{r['ms']:.4f} ms, tie slab {r['tie_ms']:.4f} ms, torch.topk "
+        f"{r['library_ms']:.4f} ms, bound {b_ms:.4f} ms; == plain on the "
+        f"engine slab, the tie slab and {n_cases} more slabs; card {card_s}")
     return report
-
-
-def topm_rounds(s, vals, idxs, nblk: int, block: int, m: int) -> int:
-    """One launch of the earlier top-m design (timing only: no launch
-    count, no wrapper of the port calls it); returns its CUDA error."""
-    from scaling_retriever_tpu_torch.ops import cuda_lib
-
-    return cuda_lib.library().srt_topm_rounds(
-        s.data_ptr(), vals.data_ptr(), idxs.data_ptr(), s.shape[0], nblk,
-        block, m, torch.cuda.current_stream(s.device).cuda_stream)
 
 
 def topm_cases(out) -> int:

@@ -28,14 +28,13 @@ the causal mask (the only mask is the key padding bias,
   one SwiGLU of width ``n_shared_experts * moe_intermediate_size``.
 
 Statistics and the softmaxes run in float32, rope too, as ``llama.py``
-does. The rope tables come from ``llama.rope_cos_sin`` through the
-module's attribute, which ``models/tile_graphs.py`` replaces while it
-captures. Each MoE layer adds its experts' slot counts to the model's
-``expert_load_counts`` [MoE layers, E] on the device (``expert_load()``
-reads it, ``reset_expert_load()`` zeroes it; neither is on the serving
-path). In eager passes each layer opens the spans ``encoder.mla`` and
-``encoder.moe`` (attrs ``layer``, ``tokens``: the positions of the pass,
-pads included); a graph's replay runs no host code.
+does, from the model's ``llama.RopeTables``. Each MoE layer adds its
+experts' slot counts to the model's ``expert_load_counts`` [MoE layers,
+E] on the device (``expert_load()`` reads it, ``reset_expert_load()``
+zeroes it; neither is on the serving path). In eager passes each layer
+opens the spans ``encoder.mla`` and ``encoder.moe`` (attrs ``layer``,
+``tokens``: the positions of the pass, pads included); a graph's replay
+runs no host code.
 """
 
 from __future__ import annotations
@@ -227,6 +226,7 @@ class DeepseekV2BiForMNTP(nn.Module):
         self.register_buffer("expert_load_counts", torch.zeros(
             n_moe, config.n_routed_experts or 0, dtype=torch.int64),
             persistent=False)
+        self.rope = llama.RopeTables(config)
 
     @property
     def device(self) -> torch.device:
@@ -253,7 +253,7 @@ class DeepseekV2BiForMNTP(nn.Module):
         with profile_span("encoder.layers"):
             h = self.embed_tokens(input_ids.long()).to(cfg.dtype)
             bias = llama.padding_bias(attention_mask)
-            cos, sin = llama.rope_cos_sin(cfg, input_ids.shape[1], h.device)
+            cos, sin = self.rope(input_ids.shape[1], h.device)
             at = 0
             for layer in self.layers:
                 load = None

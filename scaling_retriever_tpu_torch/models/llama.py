@@ -164,6 +164,31 @@ def rope_cos_sin(config: ModelConfig, seq_len: int, device
     return emb.cos() * m, emb.sin() * m
 
 
+class RopeTables:
+    """A model's rope tables: ``rope_cos_sin`` for each (seq_len, device)
+    it has run at, built at the first forward of that length and kept in
+    ``built``. Building copies the frequencies from the host and waits for
+    the copy, which a CUDA graph capture refuses, so a capture only reads
+    a table its eager pass built; the graph reads it on every replay, so
+    nothing is evicted. A table is built outside inference mode, so one
+    built by ``encode()`` serves a later training forward too."""
+
+    def __init__(self, config: ModelConfig):
+        self.config = config
+        self.built: dict = {}
+
+    def __call__(self, seq_len: int, device
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        key = (seq_len, torch.device(device))
+        tables = self.built.get(key)
+        if tables is None:
+            with torch.inference_mode(False):
+                tables = rope_cos_sin(self.config, seq_len, device)
+            # the first table stored wins if two threads built one
+            tables = self.built.setdefault(key, tables)
+        return tables
+
+
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     half = x.shape[-1] // 2
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
@@ -397,6 +422,7 @@ class LlamaBiForMNTP(nn.Module):
         self.lm_head = (None if config.tie_word_embeddings
                         else nn.Linear(config.hidden_size, config.vocab_size,
                                        bias=False, dtype=dt))
+        self.rope = RopeTables(config)
 
     @property
     def device(self) -> torch.device:
@@ -420,7 +446,7 @@ class LlamaBiForMNTP(nn.Module):
         with profile_span("encoder.layers"):
             h = self.embed_tokens(input_ids.long()).to(cfg.dtype)
             bias = padding_bias(attention_mask)
-            cos, sin = rope_cos_sin(cfg, input_ids.shape[1], h.device)
+            cos, sin = self.rope(input_ids.shape[1], h.device)
             for i, layer in enumerate(self.layers):
                 h = _run_layer(layer, remat, h, bias, cos, sin, cfg,
                                _layer_lora(lora, i), lora_scale,

@@ -11,8 +11,10 @@ kernels, in its order, from one host launch.
 
 A shape is captured only inside ``capture_tiles()`` (the text frontend's
 warm-up), right after one eager pass of it, on a CUDA device with grad
-off. Every other call runs the tile eagerly: shapes never warmed, calls
-with grad on, calls on the CPU.
+off: that pass builds what a capture may not, such as the model's rope
+tables (``llama.RopeTables``), which the graph then reads. Every other
+call runs the tile eagerly: shapes never warmed, calls with grad on,
+calls on the CPU.
 
     with torch.no_grad(), capture_tiles():
         graphs.run(fn, ids, mask, t, device)   # eager pass, then capture
@@ -32,7 +34,6 @@ from typing import Callable
 
 import torch
 
-from scaling_retriever_tpu_torch.models import llama
 from scaling_retriever_tpu_torch.utils.profiling import profile_span, tracing
 
 _local = threading.local()   # .capture: inside capture_tiles(); .replays
@@ -54,38 +55,13 @@ def replays() -> int:
     return getattr(_local, "replays", 0)
 
 
-@contextlib.contextmanager
-def _rope_built_once():
-    """While a tile is warmed and captured, ``llama.rope_cos_sin`` builds
-    each table once, in the eager pass, and hands the same tensors to the
-    capture: building them copies the frequencies from the host, which a
-    capture may not do. Yields the tables, which the graph goes on
-    reading."""
-    real = llama.rope_cos_sin
-    tables: dict = {}
-
-    def built_once(config, seq_len, device):
-        key = (id(config), seq_len, str(device))
-        if key not in tables:
-            tables[key] = real(config, seq_len, device)
-        return tables[key]
-
-    llama.rope_cos_sin = built_once
-    try:
-        yield tables
-    finally:
-        llama.rope_cos_sin = real
-
-
 class _Tile:
-    """One captured shape: the graph, its static inputs and outputs, and
-    the other tensors it reads (the rope tables)."""
+    """One captured shape: the graph and its static inputs and outputs."""
 
-    __slots__ = ("graph", "ids", "mask", "out", "keep")
+    __slots__ = ("graph", "ids", "mask", "out")
 
-    def __init__(self, graph, ids, mask, out, keep):
-        self.graph, self.ids, self.mask = graph, ids, mask
-        self.out, self.keep = out, keep
+    def __init__(self, graph, ids, mask, out):
+        self.graph, self.ids, self.mask, self.out = graph, ids, mask, out
 
     def replay(self, ids, mask) -> tuple:
         with profile_span("encoder.upload"):
@@ -136,12 +112,11 @@ class TileGraphs:
         if (tile is not None or not graphable
                 or not getattr(_local, "capture", False)):
             return fn(ids, mask)
-        with _rope_built_once() as tables:
-            out = fn(ids, mask)
-            self._tiles[key] = self._capture(fn, ids, mask, device, tables)
+        out = fn(ids, mask)
+        self._tiles[key] = self._capture(fn, ids, mask, device)
         return out
 
-    def _capture(self, fn, ids, mask, device, tables) -> _Tile:
+    def _capture(self, fn, ids, mask, device) -> _Tile:
         static_ids = torch.as_tensor(ids).to(device, copy=True)
         static_mask = torch.as_tensor(mask).to(device, copy=True)
         graph = torch.cuda.CUDAGraph()
@@ -162,4 +137,4 @@ class TileGraphs:
                 graph.capture_end()
         torch.cuda.current_stream(device).wait_stream(stream)
         self._pool = graph.pool()
-        return _Tile(graph, static_ids, static_mask, out, tables)
+        return _Tile(graph, static_ids, static_mask, out)

@@ -31,7 +31,7 @@ from scaling_retriever_tpu_torch.utils.utils import build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
-SOURCES = ("fetch.cu", "segsum.cu", "topm.cu", "topm_rounds.cu", "moe.cu")
+SOURCES = ("fetch.cu", "segsum.cu", "topm.cu", "moe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
@@ -48,8 +48,6 @@ SIGNATURES = {
     "srt_fetch_bf16": [_P] * 8 + [_I64, _I32, _I32, _P],
     "srt_segsum": [_P] * 3 + [_I64, _I64, _I32, _P],
     "srt_topm": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
-    # the earlier top-m design, for chip_smoke.py's before/after timing only
-    "srt_topm_rounds": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
     # the routed-expert layer (ops/moe.py)
     "srt_moe_route": [_P, _I32, _I32] + [_P] * 6,
     "srt_moe_expert_up": [_P] * 6 + [_I32] * 5 + [_P],

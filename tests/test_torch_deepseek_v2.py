@@ -370,25 +370,22 @@ def test_training_and_sharding_raise_naming_the_architecture(enc):
         partitioning.apply_shardings(enc.params, {})
 
 
-def test_eager_passes_open_the_layer_spans_and_read_rope_once(enc,
-                                                              monkeypatch):
-    calls = []
-    real = llama.rope_cos_sin
-
-    def counted(*a):
-        calls.append(a[1])
-        return real(*a)
-
-    # the tile graphs' capture hook replaces this attribute
-    monkeypatch.setattr(llama, "rope_cos_sin", counted)
+def test_eager_passes_open_the_layer_spans_and_read_rope_once(enc):
     ids, mask = _left_padded(_texts())
+    rope = enc.params.rope
+    rope.built.clear()
+    enc.encode(ids, mask)
+    first = dict(rope.built)
     profiling.reset_spans()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         enc.encode(ids, mask)
     recs = profiling.spans()
     profiling.reset_spans()
-    assert calls == [ids.shape[1]]
+    # one build, at the first encode; the second reads the same tables
+    key = (ids.shape[1], torch.device("cpu"))
+    assert list(first) == list(rope.built) == [key]
+    assert rope.built[key] is first[key]
     for name, layers in (("encoder.mla", [0, 1, 2]), ("encoder.moe", [1, 2])):
         got = [r for r in recs if r[0] == name]
         assert [r[5]["layer"] for r in got] == layers
@@ -473,7 +470,7 @@ def test_a_replay_counts_its_real_positions_only_while_traced():
 
     static = torch.zeros((2, 4), dtype=torch.int32)
     tile = tile_graphs._Tile(Graph(), static, static.clone(),
-                             (torch.zeros(2),), None)
+                             (torch.zeros(2),))
     mask = np.array([[0, 1, 1, 1], [0, 0, 1, 1]], np.int32)
     profiling.reset_spans()
     tile.replay(np.zeros_like(mask), mask)      # no profiler: no record

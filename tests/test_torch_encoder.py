@@ -15,6 +15,7 @@ from scaling_retriever_tpu.models import encoder as ref_encoder
 from scaling_retriever_tpu.models import llama as ref_llama
 from scaling_retriever_tpu.models.lora import LoraConfig as RefLoraConfig
 from scaling_retriever_tpu.models.lora import init_lora_params
+from scaling_retriever_tpu_torch.models import llama
 from scaling_retriever_tpu_torch.models.config import LLAMA_3_2_1B, ModelConfig
 from scaling_retriever_tpu_torch.models.encoder import LlamaBiSparse
 from scaling_retriever_tpu_torch.models.lora import LoraConfig
@@ -95,6 +96,38 @@ def test_lora_branch_and_merge_match_reference(tiny_config):
     assert merged.lora is None
     np.testing.assert_allclose(merged.encode(ids, mask).numpy(), want,
                                rtol=RTOL, atol=ATOL)
+
+
+def test_rope_tables_built_by_encode_serve_a_training_step(tiny_config):
+    """``encode()`` runs under inference mode; the rope tables it builds
+    are kept on the model and read again, as the same tensors, by a
+    training forward and backward at the same length."""
+    cfg = tiny_config
+    params = ref_llama.init_params(cfg, jax.random.PRNGKey(5))
+    pcfg = _port_config(cfg)
+    model = LlamaBiSparse(params_from_jax(_numpy_tree(params), pcfg, "cpu"),
+                          pcfg)
+    ids, mask = _batch(cfg.vocab_size)
+    seq = ids.shape[1]
+    key = (seq, torch.device("cpu"))
+    model.encode(ids, mask)
+    rope = model.params.rope
+    assert list(rope.built) == [key]
+    first = rope.built[key]
+    assert not any(t.is_inference() for t in first)
+    model.params.requires_grad_(True)
+    with torch.enable_grad():
+        out = model.loss_forward(model.params, None, {
+            "tokenized_queries": {"input_ids": ids[:2],
+                                  "attention_mask": mask[:2]},
+            "tokenized_contexts": {"input_ids": ids, "attention_mask": mask},
+            "target_labels": np.array([0, 1])})
+        (out["rank"] + out["query_reg"] + out["doc_reg"]).backward()
+    assert model.params.embed_tokens.weight.grad is not None
+    assert list(rope.built) == [key] and rope.built[key] is first
+    cos, sin = first
+    want = llama.rope_cos_sin(pcfg, seq, "cpu")
+    assert torch.equal(cos, want[0]) and torch.equal(sin, want[1])
 
 
 def test_pooling_matches_reference():

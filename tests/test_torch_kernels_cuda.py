@@ -445,23 +445,57 @@ class _EchoServer:
 
 
 def _tiny_encoder(family, dev, vocab=20000):
-    """A Qwen2-shaped encoder (q/k/v bias, tied head, GQA 3:1) or a
-    Mistral-shaped one (untied head, GQA 4:1), bf16 as configured, with
-    random q/k/v biases."""
+    """A Qwen2-shaped encoder (q/k/v bias, tied head, GQA 3:1), a
+    Mistral-shaped one (untied head, GQA 4:1), a Llama-shaped one (tied
+    head, GQA 4:1, llama3 rope scaling) or a DeepSeek-V2-shaped one
+    (latent attention, yarn rope as published, a dense layer then one of
+    8 routed experts, top-2, and a shared one, at widths the expert
+    kernels take), bf16 as configured, with random q/k/v biases."""
+    from scaling_retriever_tpu_torch.models import deepseek_v2, encoder
     from scaling_retriever_tpu_torch.models.config import ModelConfig
-    from scaling_retriever_tpu_torch.models.encoder import (MistralBiSparse,
-                                                            Qwen2BiSparse)
     from scaling_retriever_tpu_torch.models.weights import random_params
 
+    bf16 = {"dtype": torch.bfloat16, "param_dtype": torch.bfloat16}
+    if family == "deepseek_v2":
+        cfg = ModelConfig.from_hf_config({
+            "model_type": "deepseek_v2", "vocab_size": vocab,
+            "hidden_size": 256, "intermediate_size": 512,
+            "num_hidden_layers": 2, "num_attention_heads": 4,
+            "num_key_value_heads": 4, "kv_lora_rank": 64,
+            "q_lora_rank": None, "qk_nope_head_dim": 32,
+            "qk_rope_head_dim": 16, "v_head_dim": 32,
+            "n_routed_experts": 8, "n_shared_experts": 1,
+            "num_experts_per_tok": 2, "moe_intermediate_size": 128,
+            "first_k_dense_replace": 1, "moe_layer_freq": 1,
+            "norm_topk_prob": False, "routed_scaling_factor": 1,
+            "scoring_func": "softmax", "topk_method": "greedy",
+            "rms_norm_eps": 1e-6, "rope_theta": 10000,
+            "tie_word_embeddings": False,
+            "max_position_embeddings": 163840,
+            "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40,
+                             "mscale": 0.707, "mscale_all_dim": 0.707,
+                             "original_max_position_embeddings": 4096,
+                             "type": "yarn"}}, **bf16)
+        params = deepseek_v2.empty_model(cfg, dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        with torch.no_grad():
+            for p in params.parameters():
+                if p.dim() == 1:
+                    p.fill_(1.0)
+                else:
+                    p.normal_(0.0, 0.02, generator=g)
+        return encoder.DeepseekV2BiSparse(params, cfg)
     qwen = family == "qwen2"
+    llama3 = {"factor": 32.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+              "original_max_position_embeddings": 64, "rope_type": "llama3"}
     cfg = ModelConfig(
         vocab_size=vocab, hidden_size=96 if qwen else 128,
         intermediate_size=256, num_hidden_layers=2,
         num_attention_heads=6 if qwen else 8,
         num_key_value_heads=2, rope_theta=1e6 if qwen else 1e4,
-        tie_word_embeddings=qwen, attention_qkv_bias=qwen,
-        model_type=family, dtype=torch.bfloat16,
-        param_dtype=torch.bfloat16)
+        rope_scaling=llama3 if family == "llama" else None,
+        tie_word_embeddings=family != "mistral", attention_qkv_bias=qwen,
+        model_type=family, **bf16)
     params = random_params(cfg, 3, dev)
     if qwen:
         g = torch.Generator(device=dev).manual_seed(4)
@@ -469,7 +503,9 @@ def _tiny_encoder(family, dev, vocab=20000):
             for layer in params.layers:
                 for name in ("wq", "wk", "wv"):
                     getattr(layer, name).bias.normal_(0.0, 0.5, generator=g)
-    return (Qwen2BiSparse if qwen else MistralBiSparse)(params, cfg)
+    return {"qwen2": encoder.Qwen2BiSparse,
+            "mistral": encoder.MistralBiSparse,
+            "llama": encoder.LlamaBiSparse}[family](params, cfg)
 
 
 def _tile_texts(seed, n, vocab):
@@ -479,7 +515,8 @@ def _tile_texts(seed, n, vocab):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("family", ["qwen2", "mistral"])
+@pytest.mark.parametrize("family", ["llama", "qwen2", "mistral",
+                                    "deepseek_v2"])
 def test_graphed_tiles_equal_eager_tiles(cuda, family):
     """At each (width, rung) of a two-width, two-rung ladder a replayed
     tile's (terms, vals) equal the eager tile's bit for bit, and tile n's
@@ -516,6 +553,57 @@ def test_graphed_tiles_equal_eager_tiles(cuda, family):
                                                      torch.float32)
                 assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
             assert int((got[0][1] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek_v2"])
+def test_a_seen_length_runs_rope_without_a_sync(cuda, family):
+    """Building a length's rope tables copies the frequencies from the
+    host and waits for the copy; the model keeps the tables, so a second
+    eager forward at that length runs no synchronising operation in rope
+    (``torch.cuda.set_sync_debug_mode``). A table built afresh is the
+    control: its sync is seen. The forward's other synchronising
+    operations, if any, are printed (``-rP``)."""
+    import traceback
+    import warnings
+
+    from scaling_retriever_tpu_torch.models import llama
+
+    model = _tiny_encoder(family, cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ids = torch.randint(2, model.vocab_size, (4, 16), generator=g,
+                        device=cuda)
+    mask = torch.ones_like(ids)
+    syncs = []
+
+    def record(message, *args, **kwargs):
+        # not the notice that the debug mode is a prototype
+        if "synchronizing" in str(message) and "prototype" not in str(
+                message):
+            syncs.append(traceback.extract_stack()[:-1])
+
+    def synced(fn):
+        del syncs[:]
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return [[f.name for f in stack] for stack in syncs]
+
+    with torch.no_grad():
+        model.params.forward_hidden(ids, mask)
+        torch.cuda.synchronize()
+        seen = synced(lambda: model.params.forward_hidden(ids, mask))
+        control = synced(lambda: llama.rope_cos_sin(model.config, 16, cuda))
+    torch.cuda.synchronize()
+    assert list(model.params.rope.built) == [(16, ids.device)]
+    assert any("rope_cos_sin" in names for names in control)
+    for names in seen:
+        print(family, "sync in", " > ".join(names[-5:-1]))
+    assert not any("rope_cos_sin" in names for names in seen)
 
 
 def test_unwarmed_shapes_and_grad_run_eager(cuda):
