@@ -151,7 +151,18 @@ Phases (any failure raises and exits non-zero):
      eagerly through DeepseekV2BiSparse.encode: each tile's launch counts
      read from 0 (one of each moe_* kernel per MoE layer, 26 a tile) and
      its expert-load counter (every position's 6 slots in each MoE layer);
- 13. print the card, per-kernel numbers as one JSON line, and last
+ 13. the attention kernel (csrc/attention.cu: rope, GQA attention and
+     P.V in one launch) at Mistral-7B's text tile (64 x 64, 32 / 8 heads
+     of 128), Qwen2-1.5B's (64 x 16 and 8 x 16, 12 / 2 heads of 128) and
+     the smoke's Llama-3.2-1B's (TILE x 16 and TILE x 64, 32 / 8 heads of
+     64, llama3 rope scaling) under left-padded masks, against its plain
+     version (apply_rope then attention), launched twice bit for bit, and
+     timed beside its bound, its plain version and
+     F.scaled_dot_product_attention over pre-roped inputs (the yardstick,
+     never called by the port), all three replayed from CUDA graphs; each
+     tile's launches read from 0 over an eager encode of that tile through
+     its configuration's whole model (random bf16 weights): once a layer;
+ 14. print the card, per-kernel numbers as one JSON line, and last
      {"ok": true, "device": {...}}.
 """
 
@@ -196,6 +207,8 @@ CHUNK2 = 2048
 BMX_COVER = 4.0               # block-max pass 1 covers BMX_COVER * TOPK docs
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM data sheet, non-tensor f32
+BENCH_CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "retrieval_bench", "configs")
 
 
 MOE_KERNELS = ("moe_route", "moe_expert_up", "moe_expert_down",
@@ -204,9 +217,12 @@ MOE_KERNELS = ("moe_route", "moe_expert_up", "moe_expert_down",
 # path (phase 6), checkpoint and training path (phases 7, 8), hybrid and
 # T5 path (phase 9), sharded path (phase 10a), power-law path (phase 11)
 # and DeepSeek-V2 tile (phase 12) must launch; topm_dense is B5 at its
-# dense site
+# dense site. The served text tiles replay CUDA graphs, which launch
+# nothing from the host: the attention kernel's launches there are those
+# of the captures' warm-up ("text tile captures")
 PATH_KERNELS = {
     "text q8 + pre-encoded f32": ("fetch_f32", "fetch_q8", "segsum", "topm"),
+    "text tile captures": ("rope_attention",),
     "pre-encoded bf16": ("fetch_bf16", "segsum", "topm"),
     "pre-encoded block-max": ("fetch_f32_blockmax", "segsum", "topm"),
     "offline f32": ("fetch_f32", "segsum", "topm"),
@@ -219,7 +235,7 @@ PATH_KERNELS = {
     "served dense": ("topm_dense",),
     "checkpoint pipeline": ("fetch_f32", "segsum", "topm"),
     "trained adapter": ("fetch_f32", "segsum", "topm"),
-    "hybrid sparse": ("fetch_f32", "segsum", "topm"),
+    "hybrid sparse": ("fetch_f32", "segsum", "topm", "rope_attention"),
     "hybrid dense": ("topm_dense",),
     "t5 trained adapter": ("fetch_f32", "segsum", "topm"),
     "sharded f32": ("fetch_f32", "segsum", "topm"),
@@ -626,8 +642,181 @@ def moe_phase(dev, seed: int, card_s: str) -> list:
     return report
 
 
-DSV2_LITE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "retrieval_bench", "configs", "deepseek-v2-lite.json")
+# the attention kernel's text tiles: (configuration, texts, positions);
+# the benchmark's configurations and the smoke's own encoder's, whose
+# head dim (64) is another instance
+ATTN_TILES = (("mistral-7b", 64, 64), ("qwen2-1.5b", 64, 16),
+              ("qwen2-1.5b", 8, 16), ("llama-3.2-1b", TILE, 16),
+              ("llama-3.2-1b", TILE, 64))
+
+
+def attention_config(name: str):
+    """The bf16 ``ModelConfig`` of an ``ATTN_TILES`` configuration: the
+    benchmark's config.json under retrieval_bench/configs, or
+    Llama-3.2-1B's."""
+    from scaling_retriever_tpu_torch.models.config import (LLAMA_3_2_1B,
+                                                           ModelConfig)
+
+    if name == "llama-3.2-1b":
+        hf = LLAMA_3_2_1B
+    else:
+        with open(os.path.join(BENCH_CONFIGS, f"{name}.json")) as f:
+            hf = json.load(f)["model"]
+    return ModelConfig.from_hf_config(hf, dtype=torch.bfloat16,
+                                      param_dtype=torch.bfloat16)
+
+
+def attention_case(dev, cfg, texts: int, pos: int,
+                   g: torch.Generator) -> tuple:
+    """One layer's bf16 q, k, v (unroped) at ``cfg``'s heads, its rope
+    tables and the bias of a left-padded mask (one full row, the rest half
+    to full length)."""
+    from scaling_retriever_tpu_torch.models import llama
+
+    cos, sin = llama.rope_cos_sin(cfg, pos, dev)
+    real = torch.randint(pos // 2, pos + 1, (texts,), generator=g,
+                         device=dev)
+    real[0] = pos
+    mask = (torch.arange(pos, device=dev)[None, :]
+            >= pos - real[:, None]).int()
+
+    def bf(heads):
+        return torch.randn(texts, pos, heads, cfg.head_dim_, generator=g,
+                           device=dev).to(torch.bfloat16)
+
+    return (bf(cfg.num_attention_heads), bf(cfg.num_key_value_heads),
+            bf(cfg.num_key_value_heads), cos, sin, llama.padding_bias(mask))
+
+
+def graph_ms(fn, iters: int) -> float:
+    """The device time of one call of ``fn``: ``iters`` calls captured in
+    a CUDA graph and replayed, so the host's launch cost is not timed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        for _ in range(iters):
+            fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    ms = time_ms(graph.replay, 5, 1) / iters
+    del graph
+    return ms
+
+
+def sdpa_ms(q, k, v, keep, iters: int):
+    """F.scaled_dot_product_attention over the heads-first views (the
+    kernel's yardstick), or its error's name where it does not run."""
+    import torch.nn.functional as F
+
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    try:
+        return graph_ms(lambda: F.scaled_dot_product_attention(
+            *args, attn_mask=keep, enable_gqa=True), iters)
+    except (RuntimeError, TypeError) as exc:
+        return f"not run ({type(exc).__name__})"
+
+
+def attention_tiles(dev, name: str, cfg, seed: int) -> dict:
+    """Each ``ATTN_TILES`` tile of configuration ``name``, encoded eagerly
+    through the whole model (random bf16 weights from ``seed``) by the
+    port's entry point: its launch counts read from 0 over exactly that
+    encode, the attention kernel's once a layer."""
+    from scaling_retriever_tpu_torch.models import encoder
+    from scaling_retriever_tpu_torch.models.weights import random_params
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+
+    cls = {"llama": encoder.LlamaBiSparse, "qwen2": encoder.Qwen2BiSparse,
+           "mistral": encoder.MistralBiSparse}[cfg.model_type]
+    enc = cls(random_params(cfg, seed, dev), cfg)
+    rng = np.random.default_rng(seed)
+    paths = {}
+    for _, texts, pos in (t for t in ATTN_TILES if t[0] == name):
+        ids = rng.integers(2, cfg.vocab_size, (texts, pos)).astype(np.int32)
+        mask = np.ones((texts, pos), np.int32)
+        for i, n in enumerate(rng.integers(pos // 2, pos + 1, texts)):
+            ids[i, :pos - n] = 0
+            mask[i, :pos - n] = 0
+        cuda_lib.reset_launches()
+        reps = enc.encode(ids, mask)
+        torch.cuda.synchronize()
+        counts = dict(cuda_lib.LAUNCHES)
+        tile = f"{texts}x{pos}"
+        paths[f"{name} {tile} tile"] = counts
+        check(counts["rope_attention"] == cfg.num_hidden_layers,
+              f"{name} {tile} tile launched the attention kernel "
+              f"{counts['rope_attention']} times over "
+              f"{cfg.num_hidden_layers} layers")
+        check(bool(torch.isfinite(reps).all()),
+              f"{name} {tile} tile: reps not finite")
+        log(f"{name} {tile} tile, eager: {counts['rope_attention']} "
+            f"attention launches over {cfg.num_hidden_layers} layers")
+    del enc, reps
+    free()
+    return paths
+
+
+def attention_phase(dev, seed: int, card_s: str) -> tuple:
+    """Phase 13: the attention kernel against its plain version at the text
+    tiles of ``ATTN_TILES``, timed, and each tile's launches in its own
+    configuration's eager encode; returns the report entries and those
+    launch counts by path."""
+    from scaling_retriever_tpu_torch.ops import attention as att
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    report = []
+    paths = {}
+    for name in dict.fromkeys(t[0] for t in ATTN_TILES):
+        cfg = attention_config(name)
+        paths.update(attention_tiles(dev, name, cfg, seed))
+        for _, texts, pos in (t for t in ATTN_TILES if t[0] == name):
+            case = attention_case(dev, cfg, texts, pos, g)
+            q, k, v, cos, sin, bias = case
+            tile = f"{texts}x{pos}"
+            before = cuda_lib.LAUNCHES["rope_attention"]
+            got = att.rope_attention(*case)
+            check(cuda_lib.LAUNCHES["rope_attention"] == before + 1,
+                  f"rope_attention at {name} {tile} was not launched")
+            want = att.rope_attention_plain(*case)
+            err = (got.float() - want.float()).abs()
+            check(err.max().item() <= 2 ** -6 * v.float().abs().max().item()
+                  and err.mean().item()
+                  <= 2 ** -10 * want.float().abs().mean().item(),
+                  f"rope_attention at {name} {tile}: max error "
+                  f"{err.max().item()}, mean {err.mean().item()}")
+            check(torch.equal(att.rope_attention(*case), got),
+                  f"rope_attention at {name} {tile}: two launches differ")
+            qr, kr = att.apply_rope(q, cos, sin), att.apply_rope(k, cos, sin)
+            nbytes = (2 * (q.numel() + k.numel() + v.numel() + got.numel())
+                      + 4 * (cos.numel() + sin.numel() + bias.numel()))
+            b_ms, b_by = bound(nbytes, 4.0 * q.numel() * pos, BF16_OPS_PER_S)
+            report.append({
+                "name": "rope_attention", "tile": tile, "layout": name,
+                "head_dim": cfg.head_dim_,
+                "ms": graph_ms(lambda: att.rope_attention(*case), 20),
+                "plain_ms": graph_ms(
+                    lambda: att.rope_attention_plain(*case), 10),
+                "library_ms": sdpa_ms(qr, kr, v, bias == 0, 50),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "max_err": err.max().item(), "mean_err": err.mean().item(),
+                "launches": paths[f"{name} {tile} tile"]["rope_attention"]})
+            del case, q, k, v, got, want, err, qr, kr
+    free()
+    for x in report:
+        log(f"kernel rope_attention at {x['layout']} {x['tile']} (head dim "
+            f"{x['head_dim']}): {x['ms']:.4f} ms (plain {x['plain_ms']:.4f} "
+            f"ms, library {x['library_ms']}, all replayed from CUDA graphs; "
+            f"bound {x['bound_ms']:.4f} ms by {x['bound_by']}; max error "
+            f"{x['max_err']:.3g}, mean {x['mean_err']:.3g}; "
+            f"{x['launches']} launches a tile); card {card_s}")
+    return report, paths
+
+
+DSV2_LITE = os.path.join(BENCH_CONFIGS, "deepseek-v2-lite.json")
 
 
 @torch.no_grad()
@@ -980,8 +1169,21 @@ def serving_phase(dev, model, eng_f32, eng_q8, eng_bf16, bmx, bmx_tiles,
         srv_f32.warmup(sample, passes=1)
         fe = QueryEncoderFrontend(srv_q8, encode, tok, widths=(TILE,),
                                   t_sparse=T_BUDGET)
+        # ---- the served tiles' captures: launch counts cover exactly
+        # this warm-up, whose graphs the main path replays ----
+        n_graphs = len(model.tile_graphs)
+        cuda_lib.reset_launches()
         w = fe.warmup(short[:8] + long[:8], passes=2)
+        paths["text tile captures"] = dict(cuda_lib.LAUNCHES)
         log(f"frontend warmup: {w}")
+        # each new (width, rung) shape runs one eager pass and one capture,
+        # each launching the attention kernel once a layer
+        captured = len(model.tile_graphs) - n_graphs
+        got = paths["text tile captures"]["rope_attention"]
+        want = 2 * captured * model.config.num_hidden_layers
+        check(captured > 0 and got == want,
+              f"the text warm-up captured {captured} tiles and launched "
+              f"the attention kernel {got} times, expected {want}")
         handle = encode(*tok(long[:TILE], length=64))
         retr_ms = time_ms(lambda: eng_q8.finalize_handoff(
             eng_q8.retrieve_tile_handoff_async(handle[0], handle[1],
@@ -4286,7 +4488,7 @@ def main(argv=None) -> int:
 
 
 def run(dev, seed: int, card_s: str) -> list:
-    """Phases 2-11 on ``dev``; returns the per-kernel report entries."""
+    """Phases 2-13 on ``dev``; returns the per-kernel report entries."""
     from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
 
     t0 = time.perf_counter()
@@ -4414,6 +4616,13 @@ def run(dev, seed: int, card_s: str) -> list:
     log("phase 12: the routed-expert kernels match their plain versions at "
         "DeepSeek-V2-Lite's widths and the text tiles, and launch once per "
         "MoE layer in the whole model's eager tiles")
+    attn_report, p13 = attention_phase(dev, seed, card_s)
+    for path, counts in p13.items():
+        log(f"launches over the {path} path: {counts}")
+    paths.update(p13)
+    log("phase 13: the attention kernel matches its plain version at "
+        "Mistral-7B's, Qwen2-1.5B's and Llama-3.2-1B's text tiles, and "
+        "launches once a layer in each one's eager tile")
     for path, kernels in PATH_KERNELS.items():
         missing = [k_ for k_ in kernels if paths[path][k_] == 0]
         check(not missing, f"{missing} not launched on the {path} path: "
@@ -4423,7 +4632,7 @@ def run(dev, seed: int, card_s: str) -> list:
     # a routed-expert kernel's launches in the one tile its entry times
     for r in moe_report:
         r["launches"] = paths[f"deepseek {r['tile']} tile"][r["name"]]
-    report += moe_report
+    report += moe_report + attn_report
     check(all(r["launches"] > 0 for r in report),
           f"a kernel was not launched on the main paths: {paths}")
     return report

@@ -6,7 +6,9 @@ bias: the only mask is the key-padding mask from ``attention_mask``. The
 bias is finite (``MASK_VALUE``) and softmax runs in float32, so a fully
 masked row (an all-pad query) gets a uniform softmax rather than NaN, as in
 the reference. RMSNorm statistics and rope also run in float32. Position
-ids are ``arange(seq_len)`` including pad positions.
+ids are ``arange(seq_len)`` including pad positions. Rope and attention are
+``ops/attention.py``'s; a forward no gradient flows through runs the two as
+one kernel launch on the card.
 
 Projections are ``nn.Linear`` modules (weight [out, in]); the JAX package
 stores [in, out] and ``models/weights.py`` transposes on the way in. LoRA
@@ -45,6 +47,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from scaling_retriever_tpu_torch.models.config import ModelConfig
+from scaling_retriever_tpu_torch.ops.attention import (apply_rope, attention,
+                                                      rope_attention)
 from scaling_retriever_tpu_torch.parallel.collectives import (Part,
                                                              from_model,
                                                              to_model)
@@ -189,20 +193,6 @@ class RopeTables:
         return tables
 
 
-def _rotate_half(x: torch.Tensor) -> torch.Tensor:
-    half = x.shape[-1] // 2
-    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
-               ) -> torch.Tensor:
-    """x [B, S, N, hd]; cos/sin [S, hd]. Computed in float32, cast back."""
-    xf = x.float()
-    c = cos[None, :, None, :]
-    s = sin[None, :, None, :]
-    return (xf * c + _rotate_half(xf) * s).to(x.dtype)
-
-
 def _tp(weight) -> Optional[tuple]:
     """(kind, rank, size, group) of a projection whose weight is this
     rank's tensor-parallel shard (a DTensor split over a ``model`` mesh
@@ -281,22 +271,6 @@ def padding_bias(attention_mask: torch.Tensor,
     return torch.where(keep, 0.0, MASK_VALUE).to(dtype)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              bias: torch.Tensor, config: ModelConfig) -> torch.Tensor:
-    """GQA attention, logits and softmax in float32. q [B, S, Nq, hd], k/v
-    [B, S, Nkv, hd] → [B, S, Nq * hd]."""
-    b_, s, nq, hd = q.shape
-    rep = nq // k.shape[2]
-    if rep > 1:
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
-    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
-    logits = logits * (1.0 / math.sqrt(hd)) + bias.float()
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bnqk,bknd->bqnd", probs, v)
-    return out.reshape(b_, s, nq * hd)
-
-
 class LlamaLayer(nn.Module):
     """Pre-norm attention + SwiGLU MLP, bidirectional. The forward runs as
     four stages (q/k/v, attention output, MLP mid, MLP output) so that a
@@ -325,7 +299,7 @@ class LlamaLayer(nn.Module):
         return dense(x, getattr(self, name), fac, c["scale"], c["dropout"],
                      seed, c["part"])
 
-    def _qkv(self, h, c):
+    def _proj(self, h, c):
         cfg = c["config"]
         b_, s, _ = h.shape
         hd = cfg.head_dim_
@@ -334,12 +308,29 @@ class LlamaLayer(nn.Module):
         q = self._dn(x, "wq", "attn", 0, c).reshape(b_, s, -1, hd)
         k = self._dn(x, "wk", "attn", 1, c).reshape(b_, s, -1, hd)
         v = self._dn(x, "wv", "attn", 2, c).reshape(b_, s, -1, hd)
+        return q, k, v
+
+    def _qkv(self, h, c):
+        q, k, v = self._proj(h, c)
         return (apply_rope(q, c["cos"], c["sin"]),
                 apply_rope(k, c["cos"], c["sin"]), v)
 
     def _attn_out(self, q, k, v, c):
         return self._dn(attention(q, k, v, c["bias"], c["config"]), "wo",
                         "attn", 3, c)
+
+    def _attn(self, h, c):
+        """The attention block. Where no gradient will flow through the
+        bf16 projections, rope and attention run as ``rope_attention``
+        (one kernel launch on the card); a forward autograd records runs
+        them as ``apply_rope`` and ``attention``."""
+        q, k, v = self._proj(h, c)
+        if q.dtype == torch.bfloat16 and not (
+                q.requires_grad or k.requires_grad or v.requires_grad):
+            return self._dn(rope_attention(q, k, v, c["cos"], c["sin"],
+                                           c["bias"]), "wo", "attn", 3, c)
+        return self._attn_out(apply_rope(q, c["cos"], c["sin"]),
+                              apply_rope(k, c["cos"], c["sin"]), v, c)
 
     def _mlp_mid(self, h, c):
         x = rms_norm(h, self.post_attn_norm, c["config"].rms_norm_eps)
@@ -363,7 +354,7 @@ class LlamaLayer(nn.Module):
              "lora": lora, "scale": lora_scale, "dropout": lora_dropout,
              "seed": dropout_seed, "part": part}
         if save_mid is None:
-            h = h + self._attn_out(*self._qkv(h, c), c)
+            h = h + self._attn(h, c)
             return h + self._mlp(h, c)
         ck = partial(checkpoint, use_reentrant=False)
         q, k, v = ck(self._qkv, h, c)

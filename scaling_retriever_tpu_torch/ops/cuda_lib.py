@@ -31,9 +31,13 @@ from scaling_retriever_tpu_torch.utils.utils import build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
-SOURCES = ("fetch.cu", "segsum.cu", "topm.cu", "moe.cu")
+SOURCES = ("fetch.cu", "segsum.cu", "topm.cu", "moe.cu", "attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+# the attention block's eight head-dim instances take ~20 s to compile on an
+# H100 host, the other sources at most ~7 s: its optimisation passes run in
+# parallel (~10 s; the same registers, spills and kernel times)
+SOURCE_FLAGS = {"attention.cu": ("--split-compile=0",)}
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                           "kernels")
 LIB_NAME = "libsrt_kernels.so"
@@ -53,6 +57,9 @@ SIGNATURES = {
     "srt_moe_expert_up": [_P] * 6 + [_I32] * 5 + [_P],
     "srt_moe_expert_down": [_P] * 7 + [_I32] * 4 + [_P],
     "srt_moe_combine": [_P] * 4 + [_I32] * 3 + [_P],
+    # the attention block (ops/attention.py)
+    "srt_rope_attention": [_P] * 7 + [_I32] * 5 + [ctypes.c_float, _P],
+    "srt_rope_attention_split": [_I32] * 5 + [ctypes.POINTER(ctypes.c_int32)],
 }
 
 # fetch_f32_blockmax counts B1's second call site (ops/blockmax.py),
@@ -60,7 +67,7 @@ SIGNATURES = {
 LAUNCHES = {"fetch_f32": 0, "fetch_f32_blockmax": 0, "fetch_q8": 0,
             "fetch_bf16": 0, "segsum": 0, "topm": 0, "topm_dense": 0,
             "moe_route": 0, "moe_expert_up": 0, "moe_expert_down": 0,
-            "moe_combine": 0}
+            "moe_combine": 0, "rope_attention": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -79,7 +86,8 @@ def nvcc() -> str:
 
 
 def _key() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
+                       + repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
@@ -103,8 +111,9 @@ def build(verbose: bool = False) -> str:
     for name in SOURCES:
         obj = os.path.join(tmp, name + ".o")
         procs.append((name, subprocess.Popen(
-            [exe, *NVCC_FLAGS, *extra, "-c", os.path.join(CSRC, name),
-             "-o", obj], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            [exe, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), *extra, "-c",
+             os.path.join(CSRC, name), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     errors = []
     for name, p in procs:

@@ -444,13 +444,14 @@ class _EchoServer:
         return fut
 
 
-def _tiny_encoder(family, dev, vocab=20000):
+def _tiny_encoder(family, dev, vocab=20000, head_dim=None):
     """A Qwen2-shaped encoder (q/k/v bias, tied head, GQA 3:1), a
     Mistral-shaped one (untied head, GQA 4:1), a Llama-shaped one (tied
-    head, GQA 4:1, llama3 rope scaling) or a DeepSeek-V2-shaped one
-    (latent attention, yarn rope as published, a dense layer then one of
-    8 routed experts, top-2, and a shared one, at widths the expert
-    kernels take), bf16 as configured, with random q/k/v biases."""
+    head, GQA 4:1, llama3 rope scaling; heads of ``head_dim`` where given,
+    else 16) or a DeepSeek-V2-shaped one (latent attention, yarn rope as
+    published, a dense layer then one of 8 routed experts, top-2, and a
+    shared one, at widths the expert kernels take), bf16 as configured,
+    with random q/k/v biases."""
     from scaling_retriever_tpu_torch.models import deepseek_v2, encoder
     from scaling_retriever_tpu_torch.models.config import ModelConfig
     from scaling_retriever_tpu_torch.models.weights import random_params
@@ -492,7 +493,8 @@ def _tiny_encoder(family, dev, vocab=20000):
         vocab_size=vocab, hidden_size=96 if qwen else 128,
         intermediate_size=256, num_hidden_layers=2,
         num_attention_heads=6 if qwen else 8,
-        num_key_value_heads=2, rope_theta=1e6 if qwen else 1e4,
+        num_key_value_heads=2, head_dim=head_dim,
+        rope_theta=1e6 if qwen else 1e4,
         rope_scaling=llama3 if family == "llama" else None,
         tie_word_embeddings=family != "mistral", attention_qkv_bias=qwen,
         model_type=family, **bf16)
@@ -520,7 +522,10 @@ def _tile_texts(seed, n, vocab):
 def test_graphed_tiles_equal_eager_tiles(cuda, family):
     """At each (width, rung) of a two-width, two-rung ladder a replayed
     tile's (terms, vals) equal the eager tile's bit for bit, and tile n's
-    returned tensors still hold tile n's values after tile n+1 replays."""
+    returned tensors still hold tile n's values after tile n+1 replays.
+    The Llama family's tiles, captured and eager, run the attention
+    kernel once a layer (the weights need no gradient); DeepSeek-V2's
+    latent attention never launches it."""
     from scaling_retriever_tpu_torch.benches.common import StandInTokenizer
     from scaling_retriever_tpu_torch.models import tile_graphs
     from scaling_retriever_tpu_torch.serving.text_frontend import (
@@ -528,12 +533,17 @@ def test_graphed_tiles_equal_eager_tiles(cuda, family):
 
     model = _tiny_encoder(family, cuda)
     vocab = model.vocab_size
+    per_tile = (0 if family == "deepseek_v2"
+                else model.config.num_hidden_layers)
     tok = StandInTokenizer(vocab, (8, 16))
     fe = QueryEncoderFrontend(_EchoServer(), make_encode_fn(model, TILE_T),
                               tok, widths=(4, 8), t_sparse=TILE_T)
     texts = _tile_texts(5, 16, vocab)
+    launched = cuda_lib.LAUNCHES["rope_attention"]
     fe.warmup(texts[:4], passes=2)
     assert len(model.tile_graphs) == 4
+    launched = cuda_lib.LAUNCHES["rope_attention"] - launched
+    assert (launched > 0) == (per_tile > 0), launched
     encode = make_encode_fn_handoff(model, TILE_T)
     for width in (4, 8):
         for rung in (8, 16):
@@ -543,9 +553,12 @@ def test_graphed_tiles_equal_eager_tiles(cuda, family):
             with torch.no_grad():
                 got = [encode(*t) for t in tiles]
             assert tile_graphs.replays() == n0 + 2
+            launched = cuda_lib.LAUNCHES["rope_attention"]
             with torch.enable_grad():
                 want = [encode(*t) for t in tiles]
             assert tile_graphs.replays() == n0 + 2
+            assert (cuda_lib.LAUNCHES["rope_attention"] - launched
+                    == 2 * per_tile)
             torch.cuda.synchronize()
             assert not torch.equal(got[0][1], got[1][1])
             for g, w in zip(got, want):
@@ -553,6 +566,66 @@ def test_graphed_tiles_equal_eager_tiles(cuda, family):
                                                      torch.float32)
                 assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
             assert int((got[0][1] > 0).sum()) > 0
+
+
+def _kernel_only_without_grad(model, dev):
+    """A forward with grad off launches the attention kernel once a layer;
+    one autograd records (the weights require grad, as under training)
+    launches it zero times and runs apply_rope and attention, within bf16
+    roundings of the kernel's forward."""
+    params = model.params
+    g = torch.Generator(device=dev).manual_seed(8)
+    ids = torch.randint(2, model.vocab_size, (6, 24), generator=g,
+                        device=dev)
+    mask = torch.ones_like(ids)
+    mask[0, :23] = 0
+    mask[1, :9] = 0
+    before = cuda_lib.LAUNCHES["rope_attention"]
+    with torch.no_grad():
+        fused = params.forward_hidden(ids, mask)
+    assert (cuda_lib.LAUNCHES["rope_attention"] - before
+            == model.config.num_hidden_layers)
+    params.requires_grad_(True)
+    before = cuda_lib.LAUNCHES["rope_attention"]
+    recorded = params.forward_hidden(ids, mask)
+    recorded.float().sum().backward()
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["rope_attention"] == before
+    assert recorded.requires_grad
+    err = ((fused.float() - recorded.detach().float()).norm()
+           / recorded.detach().float().norm()).item()
+    assert err < 2 ** -6, err
+
+
+@pytest.mark.parametrize("family", ["llama", "qwen2", "mistral"])
+def test_attention_kernel_runs_only_where_no_gradient_flows(cuda, family):
+    """The kernel on the no-grad forward only (``_kernel_only_without_grad``),
+    in each Llama-family encoder."""
+    _kernel_only_without_grad(_tiny_encoder(family, cuda), cuda)
+
+
+@pytest.mark.parametrize("head_dim", [32, 80])
+def test_attention_kernel_serves_other_head_dims(cuda, head_dim):
+    """A Llama model whose heads are another multiple of 16 than the
+    benchmark's 64 and 128 runs its no-grad forward through the kernel,
+    as any head dim the kernel takes (multiples of 16 up to 128)."""
+    model = _tiny_encoder("llama", cuda, head_dim=head_dim)
+    assert model.config.head_dim_ == head_dim
+    _kernel_only_without_grad(model, cuda)
+
+
+def test_attention_kernel_refuses_other_head_dims_at_the_first_forward(
+        cuda):
+    """A head dim the kernel does not take (not a multiple of 16, or past
+    128) raises at the model's first no-grad forward on the card, naming
+    what it takes; the forward autograd records still runs."""
+    model = _tiny_encoder("llama", cuda, head_dim=24)
+    ids = torch.randint(2, model.vocab_size, (2, 8), device=cuda)
+    mask = torch.ones_like(ids)
+    with torch.no_grad(), pytest.raises(ValueError, match="multiples of 16"):
+        model.params.forward_hidden(ids, mask)
+    model.params.requires_grad_(True)
+    assert model.params.forward_hidden(ids, mask).requires_grad
 
 
 @pytest.mark.parametrize("family", ["llama", "deepseek_v2"])

@@ -21,12 +21,13 @@ from scaling_retriever_tpu_torch.ops import segsort_scoring as seg
 from scaling_retriever_tpu_torch.utils.utils import build_dir
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = ("fetch.cu", "segsum.cu", "topm.cu", "moe.cu", "sparse_engine.cpp")
+CSRC = ("fetch.cu", "segsum.cu", "topm.cu", "moe.cu", "attention.cu",
+        "sparse_engine.cpp")
 
 
 def test_wheel_carries_every_csrc_source(tmp_path):
     """``pip wheel`` of a copy of the tree (so the build leaves nothing in
-    the checkout) holds the five sources the port compiles at first use."""
+    the checkout) holds the six sources the port compiles at first use."""
     src = tmp_path / "src"
     src.mkdir()
     shutil.copy(os.path.join(ROOT, "pyproject.toml"), src)
