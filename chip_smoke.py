@@ -145,7 +145,10 @@ Phases (any failure raises and exits non-zero):
      against its plain version (the products also launched twice, bit for
      bit) and timed beside its bound, its plain version and
      torch._grouped_mm (the products' yardstick, never called by the
-     port); then
+     port); the same at Kimi-Linear's widths (hidden 2,304, width 1,024,
+     top-8 of the router's 256) over a held share (experts 64-127): route
+     bit for bit over the present slots, the absent slots counted and
+     left out of the combine; then
      DeepSeek-V2-Lite whole at its published widths (15.7B parameters,
      random bf16 weights, ~31 GB) encoding an 8 x 64 and a 64 x 64 tile
      eagerly through DeepseekV2BiSparse.encode: each tile's launch counts
@@ -162,7 +165,21 @@ Phases (any failure raises and exits non-zero):
      never called by the port), all three replayed from CUDA graphs; each
      tile's launches read from 0 over an eager encode of that tile through
      its configuration's whole model (random bf16 weights): once a layer;
- 14. print the card, per-kernel numbers as one JSON line, and last
+ 14. the Kimi Delta Attention kernel (csrc/kda.cu: convolutions, norms,
+     decay, the gated delta rule's recurrence and the gated output norm in
+     one launch a layer) at Kimi-Linear's widths (32 heads of 128) and the
+     text tiles (8 and 64 texts of 64 positions, one text left-padded)
+     against its plain steps in float32, element by element, launched
+     twice bit for bit, and timed beside its bound and its plain version
+     (no library computes it); then Kimi-Linear-48B-A3B whole at its
+     published widths with 64 of each MoE layer's 256 experts held (13.8B
+     parameters, random bf16 weights, ~28 GB) encoding an 8 x 64 and a
+     64 x 64 tile eagerly through KimiLinearBiSparse.encode: each tile's
+     launch counts read from 0 (the KDA kernel once a KDA layer, 20 a
+     tile; one of each moe_* kernel per MoE layer, 26 a tile) and its
+     expert counters (every position's 8 slots in each MoE layer, held or
+     absent, some of each);
+ 15. print the card, per-kernel numbers as one JSON line, and last
      {"ok": true, "device": {...}}.
 """
 
@@ -216,7 +233,8 @@ MOE_KERNELS = ("moe_route", "moe_expert_up", "moe_expert_down",
 # the kernels each serving path (phase 4), offline path (phase 5), dense
 # path (phase 6), checkpoint and training path (phases 7, 8), hybrid and
 # T5 path (phase 9), sharded path (phase 10a), power-law path (phase 11)
-# and DeepSeek-V2 tile (phase 12) must launch; topm_dense is B5 at its
+# and DeepSeek-V2 and Kimi-Linear tiles (phases 12, 14) must launch;
+# topm_dense is B5 at its
 # dense site. The served text tiles replay CUDA graphs, which launch
 # nothing from the host: the attention kernel's launches there are those
 # of the captures' warm-up ("text tile captures")
@@ -246,6 +264,8 @@ PATH_KERNELS = {
     "zipf maxscore": ("fetch_f32", "segsum", "topm"),
     "deepseek 8x64 tile": MOE_KERNELS,
     "deepseek 64x64 tile": MOE_KERNELS,
+    "kimi 8x64 tile": MOE_KERNELS + ("kda",),
+    "kimi 64x64 tile": MOE_KERNELS + ("kda",),
 }
 
 
@@ -523,25 +543,33 @@ def log_kernels(report, card_s) -> None:
             f"by {r['bound_by']}) per {TILE}-query tile; card {card_s}")
 
 
-MOE = {"H": 2048, "I": 1408, "E": 64, "K": 6}
+# an expert layer: hidden H, expert width I, E experts held (the router's
+# ids FIRST .. FIRST + E - 1 of its ROUTER), top-K. DeepSeek-V2-Lite's
+# holds every expert; Kimi-Linear's as one card of four holds it
+MOE = {"H": 2048, "I": 1408, "E": 64, "K": 6, "ROUTER": 64, "FIRST": 0}
+MOE_SHARE = {"H": 2304, "I": 1024, "E": 64, "K": 8, "ROUTER": 256,
+             "FIRST": 64}
 MOE_TILES = ((8, 64), (64, 64))      # (texts, positions) of the text tiles
 # the routings phase 12 times: the router's spread, and the text cell's
 # tiles, where about a quarter of the positions are pads that all route to
-# the same 6 experts (each of them ~1,000 extra slots at 64 x 64)
+# the same 6 experts (each of them ~1,000 extra slots at 64 x 64); and the
+# router's spread over a held share (MOE_SHARE)
 MOE_ROUTINGS = ("random", "pad")
 
 
-def moe_case(dev, n: int, g: torch.Generator, routing: str) -> dict:
+def moe_case(dev, n: int, g: torch.Generator, routing: str,
+             spec: dict = MOE) -> dict:
     """One MoE layer's inputs for ``n`` tokens: x, a router's top-k of
-    random scores (``pad``: a quarter of the tokens on experts 0-5), its
-    weights, every expert's weights, a shared row."""
-    h, i, e, k = MOE["H"], MOE["I"], MOE["E"], MOE["K"]
+    random scores over its ``ROUTER`` experts (``pad``: a quarter of the
+    tokens on experts 0-5), its weights, the held experts' weights, a
+    shared row."""
+    h, i, e, k = spec["H"], spec["I"], spec["E"], spec["K"]
 
     def bf(*shape, std=1.0):
         return (torch.randn(*shape, generator=g, device=dev) * std).to(
             torch.bfloat16)
 
-    scores = torch.rand(n, e, generator=g, device=dev)
+    scores = torch.rand(n, spec["ROUTER"], generator=g, device=dev)
     if routing == "pad":
         scores[:n // 4, :k] += 2.0
     w, ids = torch.topk(scores.softmax(-1), k, dim=1)
@@ -569,41 +597,62 @@ def grouped_mm_ms(a, b, offs, iters: int):
 
 def moe_phase(dev, seed: int, card_s: str) -> list:
     """Phase 12: each routed-expert kernel against its plain version at the
-    text cell's tiles under each of ``MOE_ROUTINGS``, timed; returns
-    per-kernel report entries."""
+    text cell's tiles under each of ``MOE_ROUTINGS`` (DeepSeek-V2-Lite's
+    layer) and over Kimi-Linear's held share, timed; returns per-kernel
+    report entries."""
     from scaling_retriever_tpu_torch.ops import cuda_lib, moe
 
-    h, i, e, k = MOE["H"], MOE["I"], MOE["E"], MOE["K"]
     g = torch.Generator(device=dev).manual_seed(seed)
     report = []
-    for (texts, pos), routing in itertools.product(MOE_TILES, MOE_ROUTINGS):
+    cases = [(tile, routing, "deepseek", MOE) for tile, routing in
+             itertools.product(MOE_TILES, MOE_ROUTINGS)]
+    cases += [(tile, "share", "kimi", MOE_SHARE) for tile in MOE_TILES]
+    for (texts, pos), routing, layout, spec in cases:
+        h, i, e, k = spec["H"], spec["I"], spec["E"], spec["K"]
+        first = spec["FIRST"]
         n = texts * pos
-        c = moe_case(dev, n, g, routing)
-        r = moe.route(c["ids"], e)
-        want = moe.route_plain(c["ids"], e)
-        check(all(torch.equal(a, b.to(a.dtype)) for a, b in zip(r, want)),
-              f"moe_route at {n} tokens differs from its plain version")
+        c = moe_case(dev, n, g, routing, spec)
+        absent = torch.zeros(1, dtype=torch.int64, device=dev)
+        want_absent = torch.zeros_like(absent)
+        r = moe.route(c["ids"], e, None, first, absent)
+        want = moe.route_plain(c["ids"], e, None, first, want_absent)
+        present = int(want.offsets[-1])
+        check(torch.equal(r.offsets, want.offsets)
+              and torch.equal(r.inv, want.inv)
+              and torch.equal(r.order[:present], want.order[:present])
+              and torch.equal(absent, want_absent),
+              f"moe_route at {n} tokens, {routing}, differs from its plain "
+              f"version")
+        check((int(absent) > 0) == (first > 0 or spec["ROUTER"] > e)
+              and int(absent) + present == n * k,
+              f"moe_route at {n} tokens, {routing}: {int(absent)} absent "
+              f"and {present} present slots of {n * k}")
+        # the rows past the present slots' are unused
         hmid = moe.expert_up(c["x"], r, c["w_gu"], k)
-        moe_close(hmid, moe.expert_up_plain(c["x"], r, c["w_gu"], k),
+        moe_close(hmid[:present],
+                  moe.expert_up_plain(c["x"], r, c["w_gu"], k)[:present],
                   f"moe_expert_up at {n} tokens, {routing}")
-        check(torch.equal(moe.expert_up(c["x"], r, c["w_gu"], k), hmid),
+        check(torch.equal(moe.expert_up(c["x"], r, c["w_gu"], k)[:present],
+                          hmid[:present]),
               f"moe_expert_up at {n} tokens: two launches differ")
         y = moe.expert_down(hmid, r, c["w_d"], c["w"])
-        moe_close(y, moe.expert_down_plain(hmid, r, c["w_d"], c["w"]),
+        moe_close(y[:present],
+                  moe.expert_down_plain(hmid, r, c["w_d"], c["w"])[:present],
                   f"moe_expert_down at {n} tokens, {routing}")
-        check(torch.equal(moe.expert_down(hmid, r, c["w_d"], c["w"]), y),
+        check(torch.equal(moe.expert_down(hmid, r, c["w_d"], c["w"])
+                          [:present], y[:present]),
               f"moe_expert_down at {n} tokens: two launches differ")
         check(torch.equal(moe.combine(y, r, c["shared"], k),
                           moe.combine_plain(y, r, c["shared"], k)),
               f"moe_combine at {n} tokens differs from its plain version")
-        slots = n * k
-        rows = c["x"][r.order.long() // k]
+        slots = present
+        rows = c["x"][r.order[:present].long() // k]
         offs = r.offsets[1:].contiguous()
-        cases = {
+        kernels = {
             "moe_route": (
-                lambda: moe.route(c["ids"], e),
-                lambda: moe.route_plain(c["ids"], e),
-                None, slots * (8 + 4 + 4) + (e + 1) * 4, 0.0),
+                lambda: moe.route(c["ids"], e, None, first, absent),
+                lambda: moe.route_plain(c["ids"], e, None, first, absent),
+                None, n * k * (8 + 4) + slots * 4 + (e + 1) * 4, 0.0),
             "moe_expert_up": (
                 lambda: moe.expert_up(c["x"], r, c["w_gu"], k),
                 lambda: moe.expert_up_plain(c["x"], r, c["w_gu"], k),
@@ -613,14 +662,14 @@ def moe_phase(dev, seed: int, card_s: str) -> list:
             "moe_expert_down": (
                 lambda: moe.expert_down(hmid, r, c["w_d"], c["w"]),
                 lambda: moe.expert_down_plain(hmid, r, c["w_d"], c["w"]),
-                (hmid, c["w_d"].transpose(1, 2)),
+                (hmid[:present], c["w_d"].transpose(1, 2)),
                 e * h * i * 2 + slots * (i + h) * 2, 2.0 * slots * i * h),
             "moe_combine": (
                 lambda: moe.combine(y, r, c["shared"], k),
                 lambda: moe.combine_plain(y, r, c["shared"], k),
-                None, slots * (h * 2 + 4) + 2 * n * h * 2, 0.0),
+                None, slots * h * 2 + n * k * 4 + 2 * n * h * 2, 0.0),
         }
-        for name, (fn, plain, lib, nbytes, ops) in cases.items():
+        for name, (fn, plain, lib, nbytes, ops) in kernels.items():
             before = cuda_lib.LAUNCHES[name]
             fn()
             check(cuda_lib.LAUNCHES[name] == before + 1,
@@ -628,14 +677,16 @@ def moe_phase(dev, seed: int, card_s: str) -> list:
             b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
             report.append({
                 "name": name, "tile": f"{texts}x{pos}", "routing": routing,
+                "layout": layout,
                 "ms": time_ms(fn, 20), "plain_ms": time_ms(plain, 3, 1),
                 "library_ms": (None if lib is None else
                                grouped_mm_ms(*lib, offs, 20)),
                 "bound_ms": b_ms, "bound_by": b_by})
-        del c, r, want, hmid, y, rows, cases
+        del c, r, want, hmid, y, rows, kernels
     free()
     for x in report:
-        log(f"kernel {x['name']} at {x['tile']}, {x['routing']} routing: "
+        log(f"kernel {x['name']} at {x['layout']} {x['tile']}, "
+            f"{x['routing']} routing: "
             f"{x['ms']:.4f} ms (plain {x['plain_ms']:.4f} ms, library "
             f"{x['library_ms']}, bound {x['bound_ms']:.4f} ms by "
             f"{x['bound_by']}); card {card_s}")
@@ -882,6 +933,173 @@ def deepseek_phase(dev, seed: int, card_s: str) -> dict:
         ms = time_ms(lambda: enc.encode(ids, mask), 5, 1)
         log(f"DeepSeek-V2 {tile} tile, eager: {got} launches, {slots} "
             f"slots counted, {ms:.2f} ms an encode; card {card_s}")
+    del enc, model, reps
+    free()
+    return paths
+
+KIMI_LINEAR = os.path.join(BENCH_CONFIGS, "kimi-linear-48b-a3b.json")
+KDA_HEADS = 32                     # Kimi-Linear's KDA heads of 128
+
+
+def kda_inputs(dev, texts: int, pos: int, g: torch.Generator) -> tuple:
+    """One KDA layer's kernel inputs at Kimi-Linear's widths: the raw
+    projections, f and the gate in bf16, beta from a sigmoid, the first
+    text's first half pads, convolutions of PyTorch's default range,
+    ``A_log`` as fla initialises it, dt_bias the inverse softplus of
+    1e-3 .. 1e-1."""
+    w = KDA_HEADS * 128
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    q, k, v, f, gate = (rand(texts, pos, w).to(torch.bfloat16)
+                        for _ in range(5))
+    mask = torch.ones(texts, pos, dtype=torch.int32, device=dev)
+    mask[0, :pos // 2] = 0
+    beta = torch.sigmoid(rand(texts, pos, KDA_HEADS)) * mask[:, :, None]
+    convs = [(rand(w, 1, 4) * 0.3).to(torch.bfloat16) for _ in range(3)]
+    a_log = torch.log(1 + 15 * torch.rand(KDA_HEADS, generator=g,
+                                          device=dev))
+    dt = torch.exp(np.log(1e-3) + torch.rand(w, generator=g, device=dev)
+                   * np.log(100.0))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    o_norm = (1 + 0.05 * rand(128)).to(torch.bfloat16)
+    return (q, k, v, f, beta, gate, mask, *convs, a_log, dt_bias, o_norm,
+            1e-5)
+
+
+def kda_excess(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error of the bf16 ``got`` over its element's limit
+    against the float32 ``want`` (tests/test_torch_kda_cuda.py's
+    ``excess``): 2**-8 |want| (the most one bf16 rounding moves it) plus
+    2**-12 of want's root mean square (float32 sums in another order); at
+    most 1 where every element is within its limit."""
+    want = want.float()
+    floor = 2 ** -12 * want.square().mean().sqrt()
+    err = (got.float() - want).abs()
+    return (err / (2 ** -8 * want.abs() + floor)).max().item()
+
+
+def kda_phase(dev, seed: int, card_s: str) -> list:
+    """Phase 14, the kernel: the KDA kernel against its plain steps (in
+    float32 over the same inputs, TF32 off) at both text tiles, timed;
+    returns per-kernel report entries."""
+    from retrieval_bench.archs import kimi_linear as kimi_arch
+    from scaling_retriever_tpu_torch.ops import cuda_lib, kda
+
+    with open(KIMI_LINEAR) as f:
+        m = json.load(f)["model"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    report = []
+    for texts, pos in MOE_TILES:
+        args = kda_inputs(dev, texts, pos, g)
+        tile = f"{texts}x{pos}"
+        before = cuda_lib.LAUNCHES["kda"]
+        got = kda.delta_attention(*args)
+        check(cuda_lib.LAUNCHES["kda"] == before + 1,
+              f"kda at {tile} was not launched")
+        wide = [t.float() if i < 6 else t for i, t in enumerate(args)]
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            want = kda.delta_attention_plain(*wide)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        worst = kda_excess(got, want)
+        check(worst <= 1.0, f"kda at {tile}: an element's error is {worst} "
+              f"times its limit")
+        check(not got[0, :pos // 2].any(), f"kda at {tile}: a left pad's "
+              f"output is not 0")
+        check(torch.equal(kda.delta_attention(*args), got),
+              f"kda at {tile}: two launches differ")
+        tokens = texts * pos
+        b_ms, b_by = bound(kimi_arch.kda_bytes(m, tokens),
+                           kimi_arch.kda_ops(m, tokens), BF16_OPS_PER_S)
+        report.append({
+            "name": "kda", "tile": tile, "layout": "kimi-linear",
+            "ms": graph_ms(lambda: kda.delta_attention(*args), 20),
+            "plain_ms": time_ms(lambda: kda.delta_attention_plain(*args),
+                                2, 1),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "excess": worst})
+        del args, got, want, wide
+    free()
+    for x in report:
+        log(f"kernel kda at {x['tile']}: {x['ms']:.4f} ms (plain "
+            f"{x['plain_ms']:.4f} ms, library none; bound "
+            f"{x['bound_ms']:.4f} ms by {x['bound_by']}; worst element "
+            f"{x['excess']:.3g} of its limit); card {card_s}")
+    return report
+
+
+@torch.no_grad()
+def kimi_phase(dev, seed: int, card_s: str) -> dict:
+    """Phase 14, the model: Kimi-Linear-48B-A3B at its published widths
+    holding 64 of each MoE layer's 256 experts, random bf16 weights, an
+    eager encode of each text tile through the port's entry point. Returns
+    each tile's launch counts, read from 0 over exactly that encode."""
+    from scaling_retriever_tpu_torch.models import kimi_linear
+    from scaling_retriever_tpu_torch.models.config import ModelConfig
+    from scaling_retriever_tpu_torch.models.encoder import KimiLinearBiSparse
+    from scaling_retriever_tpu_torch.ops import cuda_lib
+
+    t0 = time.perf_counter()
+    with open(KIMI_LINEAR) as f:
+        hf = json.load(f)["model"]
+    cfg = ModelConfig.from_hf_config(hf, dtype=torch.bfloat16,
+                                     param_dtype=torch.bfloat16)
+    model = kimi_linear.empty_model(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for name, p in model.named_parameters():
+        if p.dim() == 1 and not name.endswith("bias"):
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, 0.02, generator=g)
+    enc = KimiLinearBiSparse(model, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_moe = sum(layer.is_moe for layer in model.layers)
+    n_kda = len(hf["linear_attn_config"]["kda_layers"])
+    log(f"Kimi-Linear: {n_params} params bf16 ({cfg.experts_here} of "
+        f"{cfg.n_routed_experts} experts held), {n_kda} KDA and {n_moe} MoE "
+        f"layers, random from seed {seed}, on card in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB")
+    rng = np.random.default_rng(seed)
+    paths = {}
+    want_counts = {**dict.fromkeys(MOE_KERNELS, n_moe), "kda": n_kda}
+    for texts, pos in MOE_TILES:
+        lens = rng.integers(pos // 2, pos + 1, texts)
+        lens[0] = pos
+        ids = np.zeros((texts, pos), np.int32)
+        mask = np.zeros((texts, pos), np.int32)
+        for i, n in enumerate(lens):
+            ids[i, pos - n:] = rng.integers(2, cfg.vocab_size, n)
+            mask[i, pos - n:] = 1
+        model.reset_expert_load()
+        cuda_lib.reset_launches()
+        reps = enc.encode(ids, mask)
+        torch.cuda.synchronize()
+        counts = dict(cuda_lib.LAUNCHES)
+        tile = f"{texts}x{pos}"
+        paths[f"kimi {tile} tile"] = counts
+        got = {k_: counts[k_] for k_ in want_counts}
+        check(got == want_counts, f"Kimi-Linear {tile} tile launched {got}, "
+              f"expected {want_counts}")
+        held = int(model.expert_load().sum())
+        absent = int(model.expert_absent().sum())
+        want = texts * pos * cfg.num_experts_per_tok * n_moe
+        check(held + absent == want and held > 0 and absent > 0,
+              f"Kimi-Linear {tile} tile: {held} held and {absent} absent "
+              f"slots counted, expected {want} in all and some of each")
+        check(tuple(reps.shape) == (texts, cfg.vocab_size)
+              and bool(torch.isfinite(reps).all()),
+              f"Kimi-Linear {tile} tile: reps {tuple(reps.shape)} not "
+              f"finite")
+        ms = time_ms(lambda: enc.encode(ids, mask), 3, 1)
+        log(f"Kimi-Linear {tile} tile, eager: {got} launches, {held} held "
+            f"and {absent} absent slots counted, {ms:.2f} ms an encode; "
+            f"card {card_s}")
     del enc, model, reps
     free()
     return paths
@@ -4488,7 +4706,7 @@ def main(argv=None) -> int:
 
 
 def run(dev, seed: int, card_s: str) -> list:
-    """Phases 2-13 on ``dev``; returns the per-kernel report entries."""
+    """Phases 2-14 on ``dev``; returns the per-kernel report entries."""
     from scaling_retriever_tpu_torch.ops.segsort_scoring import SegsortEngine
 
     t0 = time.perf_counter()
@@ -4623,16 +4841,27 @@ def run(dev, seed: int, card_s: str) -> list:
     log("phase 13: the attention kernel matches its plain version at "
         "Mistral-7B's, Qwen2-1.5B's and Llama-3.2-1B's text tiles, and "
         "launches once a layer in each one's eager tile")
+    kda_report = kda_phase(dev, seed, card_s)
+    p14 = kimi_phase(dev, seed, card_s)
+    for path, counts in p14.items():
+        log(f"launches over the {path} path: {counts}")
+    paths.update(p14)
+    log("phase 14: the KDA kernel matches its plain steps at Kimi-Linear's "
+        "widths and the text tiles; in the whole model's eager tiles it "
+        "launches once a KDA layer and the routed-expert kernels once per "
+        "MoE layer over a held share of 64 of 256 experts")
     for path, kernels in PATH_KERNELS.items():
         missing = [k_ for k_ in kernels if paths[path][k_] == 0]
         check(not missing, f"{missing} not launched on the {path} path: "
               f"{paths[path]}")
     for r in report:
         r["launches"] = sum(p_[r["name"]] for p_ in paths.values())
-    # a routed-expert kernel's launches in the one tile its entry times
-    for r in moe_report:
-        r["launches"] = paths[f"deepseek {r['tile']} tile"][r["name"]]
-    report += moe_report + attn_report
+    # a routed-expert or KDA kernel's launches in the one tile its entry
+    # times
+    for r in moe_report + kda_report:
+        model_ = "deepseek" if r["layout"] == "deepseek" else "kimi"
+        r["launches"] = paths[f"{model_} {r['tile']} tile"][r["name"]]
+    report += moe_report + attn_report + kda_report
     check(all(r["launches"] > 0 for r in report),
           f"a kernel was not launched on the main paths: {paths}")
     return report

@@ -26,6 +26,14 @@
 //    deterministic), writing the expert-sorted slot list and its inverse,
 //    and adds the expert's count to a persistent load counter. It also
 //    zeroes the products' work-item counters.
+//    A layer may hold a share of the router's experts (one card's of a
+//    layer split over several, as expert parallelism splits it): the
+//    held experts are the ids first .. first + E - 1, local id = id -
+//    first. A slot routed to an expert held elsewhere is absent: it is
+//    counted and ordered nowhere, its inverse is -1, and the blocks add
+//    the absent slots to a per-layer counter, so the products never see
+//    it and the combine skips it. A layer that holds every expert passes
+//    first 0 and finds no absent slot.
 //  * moe_expert_up_kernel / moe_expert_down_kernel: persistent blocks (one
 //    an SM) of three warpgroups. A work item is (expert, column tile, row
 //    tile), numbered expert by expert, within an expert column tile by
@@ -58,8 +66,8 @@
 //    bf16 rounding; the down kernel scales its rows by their routing
 //    weight before its one rounding. Every output is one thread's sum in
 //    one order: the same bits every run, no atomics, no split K.
-//  * moe_combine_kernel: each token sums its k slots' rows in slot order
-//    (deterministic, no atomics) in float32, rounds to bf16, adds the
+//  * moe_combine_kernel: each token sums its k present slots' rows in slot
+//    order (deterministic, no atomics) in float32, rounds to bf16, adds the
 //    shared experts' row and rounds again, as HF's bf16 MoE does.
 // The [N * k, I] intermediate and the [N * k, H] expert outputs go through
 // device memory, and the row tiles of pad positions are computed like any
@@ -79,18 +87,19 @@ constexpr int kMaxExperts = 64;
 // ---- route -----------------------------------------------------------------
 
 __global__ void __launch_bounds__(kRouteThreads) moe_route_kernel(
-    const int64_t* __restrict__ ids, int32_t n_slots, int32_t* __restrict__ offsets,
-    int32_t* __restrict__ order, int32_t* __restrict__ inv,
-    int64_t* __restrict__ load, int32_t* __restrict__ work) {
-  const int e = blockIdx.x;
+    const int64_t* __restrict__ ids, int32_t n_slots, int32_t first,
+    int32_t* __restrict__ offsets, int32_t* __restrict__ order,
+    int32_t* __restrict__ inv, int64_t* __restrict__ load,
+    int64_t* __restrict__ absent, int32_t* __restrict__ work) {
+  const int e = blockIdx.x;  // the local id
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int kWarps = kRouteThreads / 32;
   __shared__ int s_lt[kWarps], s_eq[kWarps];
   __shared__ int s_warp[kWarps];
   int lt = 0, eq = 0;
   for (int i = tid; i < n_slots; i += kRouteThreads) {
-    const int64_t v = ids[i];
-    lt += v < e;
+    const int64_t v = ids[i] - first;
+    lt += v >= 0 && v < e;
     eq += v == e;
   }
   for (int d = 16; d > 0; d >>= 1) {
@@ -116,7 +125,7 @@ __global__ void __launch_bounds__(kRouteThreads) moe_route_kernel(
   // compaction in slot order: rank = matches before i in the chunk
   for (int c0 = 0; c0 < n_slots; c0 += kRouteThreads) {
     const int i = c0 + tid;
-    const bool hit = i < n_slots && ids[i] == e;
+    const bool hit = i < n_slots && ids[i] - first == e;
     const unsigned m = __ballot_sync(0xffffffffu, hit);
     __syncthreads();  // s_warp is free again
     if (lane == 0) s_warp[warp] = __popc(m);
@@ -134,6 +143,22 @@ __global__ void __launch_bounds__(kRouteThreads) moe_route_kernel(
     }
     base += total;
   }
+  // the slots routed to experts held elsewhere, a stride of them a block
+  const int held = gridDim.x;
+  int gone = 0;
+  for (int i = e * kRouteThreads + tid; i < n_slots;
+       i += held * kRouteThreads) {
+    const int64_t v = ids[i] - first;
+    if (v < 0 || v >= held) {
+      inv[i] = -1;
+      ++gone;
+    }
+  }
+  for (int d = 16; d > 0; d >>= 1)
+    gone += __shfl_down_sync(0xffffffffu, gone, d);
+  if (lane == 0 && gone)
+    atomicAdd(reinterpret_cast<unsigned long long*>(absent),
+              static_cast<unsigned long long>(gone));
 }
 
 // ---- the grouped products ----------------------------------------------------
@@ -738,8 +763,8 @@ __global__ void __launch_bounds__(kProductThreads, 1) moe_expert_down_kernel(
   }
 }
 
-// out[t] = bf16(bf16(sum_j y[inv[t * k + j]]) + shared[t]); one block a
-// token, 8 columns a thread.
+// out[t] = bf16(bf16(sum_j y[inv[t * k + j]]) + shared[t]), over the
+// present slots j (inv >= 0); one block a token, 8 columns a thread.
 __global__ void __launch_bounds__(kThreads) moe_combine_kernel(
     const __nv_bfloat16* __restrict__ y, const int32_t* __restrict__ inv,
     const __nv_bfloat16* __restrict__ shared, __nv_bfloat16* __restrict__ out,
@@ -750,6 +775,7 @@ __global__ void __launch_bounds__(kThreads) moe_combine_kernel(
     for (int q = 0; q < 8; ++q) acc[q] = 0.f;
     for (int j = 0; j < k; ++j) {
       const int64_t p = inv[tok * k + j];
+      if (p < 0) continue;  // an expert held elsewhere
       const uint4 raw = *reinterpret_cast<const uint4*>(y + p * H + c);
       const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw);
       for (int q = 0; q < 4; ++q) {
@@ -774,12 +800,15 @@ __global__ void __launch_bounds__(kThreads) moe_combine_kernel(
 
 }  // namespace
 
+// n_experts held, global ids first .. first + n_experts - 1; ``absent``
+// gains the absent slots.
 extern "C" int srt_moe_route(const int64_t* ids, int32_t n_slots,
-                             int32_t n_experts, int32_t* offsets,
-                             int32_t* order, int32_t* inv, int64_t* load,
-                             int32_t* work, cudaStream_t stream) {
+                             int32_t n_experts, int32_t first,
+                             int32_t* offsets, int32_t* order, int32_t* inv,
+                             int64_t* load, int64_t* absent, int32_t* work,
+                             cudaStream_t stream) {
   moe_route_kernel<<<n_experts, kRouteThreads, 0, stream>>>(
-      ids, n_slots, offsets, order, inv, load, work);
+      ids, n_slots, first, offsets, order, inv, load, absent, work);
   return static_cast<int>(cudaGetLastError());
 }
 

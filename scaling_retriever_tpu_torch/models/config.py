@@ -4,9 +4,18 @@ Field names follow the HF ``config.json`` vocabulary. The defaults are the
 Llama-3.2-1B widths, but ``rope_scaling`` defaults to None; the published
 checkpoint uses llama3 scaling, which ``LLAMA_3_2_1B`` carries. The
 DeepSeek-V2 fields (latent attention and the mixture of experts,
-``models/deepseek_v2.py``) default to values that change nothing for the
-Llama family; a DeepSeek-V2 setting the port does not implement raises,
-naming its key.
+``models/deepseek_v2.py``) and the Kimi-Linear ones (its delta-rule
+layers, NoPE latent attention and sigmoid router, ``models/kimi_linear.py``)
+default to values that change nothing for the Llama family; a setting of
+either the port does not implement raises, naming its key.
+
+Kimi-Linear's ``config.json`` names its experts in its own words
+(``num_experts``, ``num_experts_per_token``, ...); ``from_hf_config`` reads
+them into the DeepSeek-V2 fields. A config that holds a share of each
+expert layer's experts (one card of several that split the layer) says so
+under ``expert_share``: ``{"router_experts": <the published count>,
+"first_held": <the first expert held here>}``, its ``num_experts`` the
+count held.
 """
 
 from __future__ import annotations
@@ -37,6 +46,47 @@ LLAMA_3_2_1B = {
     "max_position_embeddings": 131072,
     "tie_word_embeddings": True,
 }
+
+
+# Kimi-Linear's ``linear_attn_config`` keys the port implements
+KIMI_LINEAR_ATTN_KEYS = {"full_attn_layers", "kda_layers", "head_dim",
+                         "num_heads", "short_conv_kernel_size"}
+# Kimi-Linear keys of settings the port does not implement (later Kimi
+# models set them): raised on where set
+KIMI_UNSUPPORTED = ("mla_use_output_gate", "attn_res_block_size",
+                    "latent_moe_use_norm", "routed_expert_hidden_size",
+                    "activation_situ_beta", "activation_situ_linear_beta")
+# Kimi-Linear's names of the mixture-of-experts settings -> the fields
+_KIMI_NAMES = {"num_experts": "n_routed_experts",
+               "num_experts_per_token": "num_experts_per_tok",
+               "num_shared_experts": "n_shared_experts",
+               "moe_renormalize": "norm_topk_prob",
+               "moe_router_activation_func": "scoring_func",
+               "num_expert_group": "n_group"}
+
+
+def _kimi_fields(cfg: dict) -> dict:
+    """The fields a Kimi-Linear ``config.json`` sets under its own names:
+    its router always picks by score plus a correction bias (DeepSeek-V3's
+    ``noaux_tc``); ``expert_share`` (module docstring) gives the held
+    range."""
+    for key in KIMI_UNSUPPORTED:
+        if cfg.get(key):
+            raise NotImplementedError(f"Kimi-Linear {key}={cfg[key]!r}: the "
+                                      f"port implements no such setting")
+    if cfg.get("hidden_act", "silu") != "silu":
+        raise NotImplementedError(f"Kimi-Linear hidden_act="
+                                  f"{cfg['hidden_act']!r}: the port "
+                                  f"implements silu only")
+    out = {field: cfg[key] for key, field in _KIMI_NAMES.items()
+           if key in cfg}
+    out["topk_method"] = "noaux_tc"
+    share = cfg.get("expert_share")
+    if share:
+        out["experts_held"] = (int(share["first_held"]),
+                               int(cfg["num_experts"]))
+        out["n_routed_experts"] = int(share["router_experts"])
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,8 +132,19 @@ class ModelConfig:
     routed_scaling_factor: float = 1.0
     scoring_func: str = "softmax"
     topk_method: str = "greedy"
+    n_group: int = 1
+    topk_group: int = 1
+    # the experts this card holds, (first, count), of the router's
+    # ``n_routed_experts``; None: all of them
+    experts_held: Optional[tuple] = None
+    # Kimi-Linear: the delta-rule layers and latent attention without rope
+    linear_attn_config: Optional[dict] = None
+    mla_use_nope: bool = False
 
     def __post_init__(self):
+        if self.model_type == "kimi_linear":
+            self._check_kimi()
+            return
         if self.model_type != "deepseek_v2":
             return
         unsupported = {
@@ -100,6 +161,37 @@ class ModelConfig:
                 raise NotImplementedError(
                     f"DeepSeek-V2 {key}={getattr(self, key)!r}: the port "
                     f"implements no {what}")
+
+    def _check_kimi(self) -> None:
+        la = self.linear_attn_config or {}
+        layers = set(la.get("kda_layers", ())) | set(
+            la.get("full_attn_layers", ()))
+        unsupported = {
+            "q_lora_rank": (self.q_lora_rank is not None,
+                            "query compression"),
+            "mla_use_nope": (not self.mla_use_nope,
+                             "latent attention with rope"),
+            "moe_router_activation_func": (self.scoring_func != "sigmoid",
+                                           "router scores other than "
+                                           "sigmoid"),
+            "num_expert_group": (self.n_group != 1 or self.topk_group != 1,
+                                 "top-k over several expert groups"),
+            "linear_attn_config": (layers != set(range(
+                1, self.num_hidden_layers + 1)), "a layer that is neither "
+                "a delta-rule nor a full-attention layer"),
+        }
+        for key in sorted(set(la) - KIMI_LINEAR_ATTN_KEYS):
+            unsupported[f"linear_attn_config.{key}"] = (True, "such setting")
+        for key, (bad, what) in unsupported.items():
+            if bad:
+                raise NotImplementedError(
+                    f"Kimi-Linear {key}: the port implements no {what}")
+
+    def is_kda_layer(self, i: int) -> bool:
+        """Whether layer ``i`` (0-based) is a Kimi Delta Attention layer
+        (``linear_attn_config["kda_layers"]`` counts from 1)."""
+        return (self.linear_attn_config is not None
+                and i + 1 in self.linear_attn_config["kda_layers"])
 
     @property
     def head_dim_(self) -> int:
@@ -141,8 +233,16 @@ class ModelConfig:
         # Qwen2Attention; the config carries no flag)
         if cfg.get("model_type") == "qwen2":
             kwargs.setdefault("attention_qkv_bias", True)
+        if cfg.get("model_type") == "kimi_linear":
+            kwargs.update(_kimi_fields(cfg))
         kwargs.update(overrides)
         return cls(**kwargs)
+
+    @property
+    def experts_here(self) -> int:
+        """The routed experts this card holds."""
+        return (self.experts_held[1] if self.experts_held
+                else self.n_routed_experts or 0)
 
     @classmethod
     def from_pretrained(cls, model_dir: str, **overrides) -> "ModelConfig":

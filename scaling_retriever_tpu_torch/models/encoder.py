@@ -1,6 +1,8 @@
 """Retriever encoders (port of models/encoder.py): the sparse and dense
-classes of the Llama, Qwen2 and Mistral families and of DeepSeek-V2
-(``models/deepseek_v2.py``, inference only), their training losses
+classes of the Llama, Qwen2 and Mistral families and of DeepSeek-V2 and
+Kimi-Linear (``models/deepseek_v2.py``, ``models/kimi_linear.py``;
+inference only: a model that is a ``deepseek_v2.InferenceOnly`` refuses a
+LoRA, an adapter and a checkpoint to write), their training losses
 (``loss_forward``), checkpoint and adapter loading and saving, and the
 model registry (the T5 family lives in ``models/t5_encoder.py``).
 
@@ -23,6 +25,7 @@ import torch
 
 from scaling_retriever_tpu_torch.models import losses
 from scaling_retriever_tpu_torch.models.config import ModelConfig
+from scaling_retriever_tpu_torch.models.deepseek_v2 import InferenceOnly
 from scaling_retriever_tpu_torch.models.hf_loader import (load_pretrained,
                                                          save_pretrained)
 from scaling_retriever_tpu_torch.models.llama import LlamaBiForMNTP, fold_in
@@ -74,6 +77,8 @@ class LLM2Retriever:
     def __init__(self, params: LlamaBiForMNTP, config: ModelConfig,
                  lora: Optional[dict] = None,
                  lora_config: Optional[LoraConfig] = None, T: float = 1.0):
+        if lora is not None and isinstance(params, InferenceOnly):
+            params.refuse("LoRA")
         self.params = params
         self.config = config
         self.lora = lora
@@ -212,6 +217,8 @@ class LLM2Retriever:
         return type(self)(merged, self.config, None, None, T=self.T)
 
     def save_pretrained(self, save_dir: str) -> None:
+        if isinstance(self.params, InferenceOnly):
+            self.params.refuse("checkpoint to write")
         if self.lora is not None:
             save_adapter(self.lora, self.lora_config, save_dir)
         else:
@@ -222,6 +229,8 @@ class LLM2Retriever:
                      use_lora: bool = True) -> None:
         """The trainer's artifact: a peft adapter from the LoRA factors, or
         an HF checkpoint of the whole module (``--no_lora``)."""
+        if isinstance(self.params, InferenceOnly):
+            self.params.refuse("checkpoint to write")
         if use_lora and self.lora_config is not None:
             save_adapter(trainable, self.lora_config, out_dir)
         else:
@@ -275,6 +284,8 @@ class LLM2Retriever:
         params, model_config = load_pretrained(model_dir, device=device,
                                                **config_overrides)
         lora = lora_config = None
+        if lora_name_or_path and isinstance(params, InferenceOnly):
+            params.refuse("adapter")
         if lora_name_or_path:
             lora, lora_config = load_adapter(
                 _resolve_model_dir(lora_name_or_path), model_config,
@@ -342,45 +353,24 @@ class MistralBiDense(DecoderOnlyBiDense):
     BASE_MODEL_CLASS = "MistralBiModel"
 
 
-class _InferenceOnly:
-    """DeepSeek-V2's encoders: its module takes no LoRA, so neither an
-    adapter to load nor one to train, and it writes no checkpoint."""
-
-    def __init__(self, params, config, lora=None, lora_config=None,
-                 T: float = 1.0):
-        if lora is not None:
-            raise NotImplementedError(
-                f"{type(self).__name__}: DeepSeek-V2 runs inference only in "
-                f"the port, with no LoRA")
-        super().__init__(params, config, None, None, T=T)
-
-    @classmethod
-    def load(cls, model_name_or_path: str,
-             lora_name_or_path: Optional[str] = None, *a, **kw):
-        if lora_name_or_path:
-            raise NotImplementedError(
-                f"{cls.__name__}: DeepSeek-V2 runs inference only in the "
-                f"port, with no adapter")
-        return super().load(model_name_or_path, None, *a, **kw)
-
-    def save_pretrained(self, save_dir: str) -> None:
-        raise NotImplementedError(
-            f"{type(self).__name__}: DeepSeek-V2 runs inference only in the "
-            f"port, with no checkpoint to write")
-
-    def save_trained(self, trainable, out_dir: str,
-                     use_lora: bool = True) -> None:
-        self.save_pretrained(out_dir)
-
-
-class DeepseekV2BiSparse(_InferenceOnly, DecoderOnlyBiSparse):
+class DeepseekV2BiSparse(DecoderOnlyBiSparse):
     MODEL_TYPE = "deepseek_v2"
     BASE_MODEL_CLASS = "DeepseekV2BiForMNTP"
 
 
-class DeepseekV2BiDense(_InferenceOnly, DecoderOnlyBiDense):
+class DeepseekV2BiDense(DecoderOnlyBiDense):
     MODEL_TYPE = "deepseek_v2"
     BASE_MODEL_CLASS = "DeepseekV2BiForMNTP"
+
+
+class KimiLinearBiSparse(DecoderOnlyBiSparse):
+    MODEL_TYPE = "kimi_linear"
+    BASE_MODEL_CLASS = "KimiLinearBiForMNTP"
+
+
+class KimiLinearBiDense(DecoderOnlyBiDense):
+    MODEL_TYPE = "kimi_linear"
+    BASE_MODEL_CLASS = "KimiLinearBiForMNTP"
 
 
 def _variant(base, loss_type, name):
@@ -466,8 +456,10 @@ for _loss in ("nce", "margin_mse", "kldiv", "nce_kldiv"):
 
 MODEL_REGISTRY[("deepseek_v2", "sparse", "nce")] = DeepseekV2BiSparse
 MODEL_REGISTRY[("deepseek_v2", "dense", "nce")] = DeepseekV2BiDense
+MODEL_REGISTRY[("kimi_linear", "sparse", "nce")] = KimiLinearBiSparse
+MODEL_REGISTRY[("kimi_linear", "dense", "nce")] = KimiLinearBiDense
 
-_FAMILIES = ("qwen2", "mistral", "deepseek_v2")
+_FAMILIES = ("qwen2", "mistral", "deepseek_v2", "kimi_linear")
 
 
 def encoder_class(model_dir: str, pooling: str):

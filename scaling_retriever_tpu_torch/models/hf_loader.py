@@ -1,7 +1,8 @@
 """Load and save Hugging Face Llama/Qwen2/Mistral checkpoints (port of
-models/hf_loader.py), and load DeepSeek-V2's (``models/deepseek_v2.py``),
-whose routed experts' tensors (``mlp.experts.<e>.*``) are stacked into the
-port's [E, ...] layout.
+models/hf_loader.py), and load the checkpoints of the model modules that
+map HF's tensor names themselves (``OWN_NAMES``: DeepSeek-V2, Kimi-Linear;
+each module's ``empty_model`` and ``hf_target``), whose routed experts'
+tensors are stacked into the port's [E, ...] layout.
 
 Reads ``config.json`` and ``*.safetensors`` (one file, or shards listed in
 ``model.safetensors.index.json``) from a local directory with the port's
@@ -23,7 +24,8 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
-from scaling_retriever_tpu_torch.models import deepseek_v2, safetensors_io
+from scaling_retriever_tpu_torch.models import (deepseek_v2, kimi_linear,
+                                                safetensors_io)
 from scaling_retriever_tpu_torch.models.config import ModelConfig
 from scaling_retriever_tpu_torch.models.llama import LlamaBiForMNTP
 from scaling_retriever_tpu_torch.models.weights import _empty_model
@@ -47,27 +49,8 @@ _LAYER_KEY_MAP = {
 }
 
 
-# DeepSeek-V2: HF fragment -> (the port's layer path, part of its tensor):
-# part None is the whole tensor; ("gate" | "up" | "down", e) an expert's
-# slice of the stacked w_gu [E, 2I, H] or w_d [E, H, I]
-_DSV2_LAYER_MAP = {
-    "self_attn.q_proj.weight": "attn.wq.weight",
-    "self_attn.kv_a_proj_with_mqa.weight": "attn.wkv_a.weight",
-    "self_attn.kv_a_layernorm.weight": "attn.kv_norm",
-    "self_attn.kv_b_proj.weight": "attn.wkv_b.weight",
-    "self_attn.o_proj.weight": "attn.wo.weight",
-    "mlp.gate_proj.weight": "mlp.wg.weight",
-    "mlp.up_proj.weight": "mlp.wu.weight",
-    "mlp.down_proj.weight": "mlp.wd.weight",
-    "mlp.gate.weight": "mlp.gate.weight",
-    "mlp.shared_experts.gate_proj.weight": "mlp.shared.wg.weight",
-    "mlp.shared_experts.up_proj.weight": "mlp.shared.wu.weight",
-    "mlp.shared_experts.down_proj.weight": "mlp.shared.wd.weight",
-    "input_layernorm.weight": "input_norm",
-    "post_attention_layernorm.weight": "post_attn_norm",
-}
-_DSV2_EXPERT_RE = re.compile(
-    r"mlp\.experts\.(\d+)\.(gate|up|down)_proj\.weight")
+# model types whose module maps HF's names to its parameters
+OWN_NAMES = {"deepseek_v2": deepseek_v2, "kimi_linear": kimi_linear}
 
 
 def _strip_prefix(key: str) -> str:
@@ -127,7 +110,11 @@ def params_from_hf_tensors(tensors, config: ModelConfig,
     """HF-named (name, tensor) pairs (a dict or an iterator) → the port's
     module on ``device``, each tensor cast to ``param_dtype`` as it is
     copied in. An untied config whose checkpoint has no ``lm_head`` falls
-    back to the embedding matrix, as the reference does."""
+    back to the embedding matrix, as the reference does; a model type of
+    ``OWN_NAMES`` loads through its module's names."""
+    own = OWN_NAMES.get(config.model_type)
+    if own is not None:
+        return _own_params(own, tensors, config, device)
     model = _empty_model(config, device)
     params = dict(model.named_parameters())
     filled = set()
@@ -154,29 +141,8 @@ def params_from_hf_tensors(tensors, config: ModelConfig,
     return model
 
 
-def _dsv2_target(raw_key: str) -> Optional[tuple]:
-    """(the DeepSeek-V2 module's parameter name, part) for an HF tensor
-    name (see ``_DSV2_LAYER_MAP``), or None for tensors it has no place
-    for."""
-    key = _strip_prefix(raw_key)
-    top = {"embed_tokens.weight": "embed_tokens.weight",
-           "norm.weight": "final_norm", "lm_head.weight": "lm_head.weight"}
-    if key in top:
-        return top[key], None
-    m = _LAYER_RE.search(key)
-    if m is None:
-        return None
-    frag, layer = key[m.end():], f"layers.{m.group(1)}."
-    if frag in _DSV2_LAYER_MAP:
-        return layer + _DSV2_LAYER_MAP[frag], None
-    ex = _DSV2_EXPERT_RE.fullmatch(frag)
-    if ex is None:
-        return None
-    name = "mlp.w_d" if ex.group(2) == "down" else "mlp.w_gu"
-    return layer + name, (ex.group(2), int(ex.group(1)))
-
-
-def _dsv2_slice(dst: torch.Tensor, part: Optional[tuple]) -> torch.Tensor:
+def _expert_slice(dst: torch.Tensor, part: Optional[tuple]) -> torch.Tensor:
+    """A stacked parameter's slice for ``part`` (``deepseek_v2.hf_target``)."""
     if part is None:
         return dst
     kind, e = part
@@ -186,13 +152,11 @@ def _dsv2_slice(dst: torch.Tensor, part: Optional[tuple]) -> torch.Tensor:
     return dst[e, :i] if kind == "gate" else dst[e, i:]
 
 
-@torch.no_grad()
-def dsv2_params_from_hf_tensors(tensors, config: ModelConfig, device="cuda"
-                                ) -> deepseek_v2.DeepseekV2BiForMNTP:
-    """HF-named DeepSeek-V2 (name, tensor) pairs → the port's module on
-    ``device``, each expert's tensors copied into its slice of the stacked
-    projections."""
-    model = deepseek_v2.empty_model(config, device)
+def _own_params(module, tensors, config: ModelConfig, device):
+    """HF-named (name, tensor) pairs → ``module``'s model on ``device``,
+    each held expert's tensors copied into its slice of the stacked
+    projections; tensors of experts held elsewhere are passed over."""
+    model = module.empty_model(config, device)
     params = dict(model.named_parameters())
     want = set()
     for name, p in params.items():
@@ -206,10 +170,10 @@ def dsv2_params_from_hf_tensors(tensors, config: ModelConfig, device="cuda"
     filled = set()
     items = tensors.items() if isinstance(tensors, dict) else tensors
     for raw_key, value in items:
-        target = _dsv2_target(raw_key)
+        target = module.hf_target(_strip_prefix(raw_key), config)
         if target is None or target[0] not in params:
             continue
-        dst = _dsv2_slice(params[target[0]], target[1])
+        dst = _expert_slice(params[target[0]], target[1])
         if tuple(value.shape) != tuple(dst.shape):
             raise ValueError(f"{raw_key}: shape {tuple(value.shape)}, the "
                              f"model expects {tuple(dst.shape)}")
@@ -226,13 +190,12 @@ def load_pretrained(model_dir: str, config: Optional[ModelConfig] = None,
                     device="cuda", **config_overrides
                     ) -> tuple[LlamaBiForMNTP, ModelConfig]:
     """(module, config) from a local HF checkpoint directory, the module's
-    weights on ``device``: ``LlamaBiForMNTP`` for the Llama family,
-    ``DeepseekV2BiForMNTP`` for a ``deepseek_v2`` config."""
+    weights on ``device``: ``LlamaBiForMNTP`` for the Llama family, the
+    model module's own for a type of ``OWN_NAMES``."""
     if config is None:
         config = ModelConfig.from_pretrained(model_dir, **config_overrides)
-    build = (dsv2_params_from_hf_tensors
-             if config.model_type == "deepseek_v2" else params_from_hf_tensors)
-    return build(_iter_hf_tensors(model_dir), config, device), config
+    return (params_from_hf_tensors(_iter_hf_tensors(model_dir), config,
+                                   device), config)
 
 
 def _hf_items(model: LlamaBiForMNTP, config: ModelConfig):

@@ -11,8 +11,9 @@ kernels, in its order, from one host launch.
 
 A shape is captured only inside ``capture_tiles()`` (the text frontend's
 warm-up), right after one eager pass of it, on a CUDA device with grad
-off: that pass builds what a capture may not, such as the model's rope
-tables (``llama.RopeTables``), which the graph then reads. Every other
+off: that pass builds what a capture may not, such as a model's rope
+tables (``llama.RopeTables``, where the model has them), which the graph
+then reads. Every other
 call runs the tile eagerly: shapes never warmed, calls with grad on,
 calls on the CPU.
 

@@ -31,7 +31,8 @@ from scaling_retriever_tpu_torch.utils.utils import build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
-SOURCES = ("fetch.cu", "segsum.cu", "topm.cu", "moe.cu", "attention.cu")
+SOURCES = ("fetch.cu", "segsum.cu", "topm.cu", "moe.cu", "attention.cu",
+           "kda.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 # the attention block's eight head-dim instances take ~20 s to compile on an
@@ -53,13 +54,15 @@ SIGNATURES = {
     "srt_segsum": [_P] * 3 + [_I64, _I64, _I32, _P],
     "srt_topm": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
     # the routed-expert layer (ops/moe.py)
-    "srt_moe_route": [_P, _I32, _I32] + [_P] * 6,
+    "srt_moe_route": [_P, _I32, _I32, _I32] + [_P] * 7,
     "srt_moe_expert_up": [_P] * 6 + [_I32] * 5 + [_P],
     "srt_moe_expert_down": [_P] * 7 + [_I32] * 4 + [_P],
     "srt_moe_combine": [_P] * 4 + [_I32] * 3 + [_P],
     # the attention block (ops/attention.py)
     "srt_rope_attention": [_P] * 7 + [_I32] * 5 + [ctypes.c_float, _P],
     "srt_rope_attention_split": [_I32] * 5 + [ctypes.POINTER(ctypes.c_int32)],
+    # Kimi Delta Attention's recurrence (ops/kda.py)
+    "srt_kda": [_P] * 14 + [_I32] * 4 + [ctypes.c_float, _P],
 }
 
 # fetch_f32_blockmax counts B1's second call site (ops/blockmax.py),
@@ -67,7 +70,7 @@ SIGNATURES = {
 LAUNCHES = {"fetch_f32": 0, "fetch_f32_blockmax": 0, "fetch_q8": 0,
             "fetch_bf16": 0, "segsum": 0, "topm": 0, "topm_dense": 0,
             "moe_route": 0, "moe_expert_up": 0, "moe_expert_down": 0,
-            "moe_combine": 0, "rope_attention": 0}
+            "moe_combine": 0, "rope_attention": 0, "kda": 0}
 
 _lock = threading.Lock()
 _lib = None

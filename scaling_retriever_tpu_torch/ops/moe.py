@@ -24,6 +24,16 @@ data-dependent shape:
   atomics: the same bits every run), rounded, plus the shared experts'
   row (``moe_combine``).
 
+A layer may hold a share of the router's experts, as one card does where
+a layer's experts are split over several (expert parallelism, run here
+without its exchange): the E held experts are the router's ids ``first``
+.. ``first + E - 1``. A slot routed to an expert held elsewhere is absent:
+``route`` counts and orders only present slots (``offsets[E]`` of them;
+``order`` past that is unused) and gives an absent slot the inverse -1,
+the products do no work for it, and ``combine`` leaves it out of its
+token's sum. A layer that holds every expert is the share from 0, where
+no slot is absent.
+
 All E experts' weights lie stacked, one tensor a projection: ``w_gu``
 [E, 2 * I, H] (each expert's gate rows, then its up rows) and ``w_d``
 [E, H, I]. Each function has a plain PyTorch version here (a loop over
@@ -47,7 +57,8 @@ ROW_TILE = 128        # the products' rows a work item (csrc/moe.cu BM)
 class Routing(NamedTuple):
     offsets: torch.Tensor   # [E + 1] int32: expert e's slots at [o[e], o[e+1])
     order: torch.Tensor     # [N * k] int32: the slot at each sorted position
-    inv: torch.Tensor       # [N * k] int32: each slot's sorted position
+    inv: torch.Tensor       # [N * k] int32: each slot's sorted position (-1:
+    # absent)
     # [2] int32, zero: the up and the down product's work-item counters
     # (each launch leaves its own at zero again)
     work: torch.Tensor
@@ -65,14 +76,20 @@ def _on_card(t: torch.Tensor, name: str) -> bool:
 
 
 def route_plain(ids: torch.Tensor, n_experts: int,
-                load: Optional[torch.Tensor] = None) -> Routing:
-    flat = ids.reshape(-1)
-    counts = torch.bincount(flat, minlength=n_experts)
+                load: Optional[torch.Tensor] = None, first: int = 0,
+                absent: Optional[torch.Tensor] = None) -> Routing:
+    local = ids.reshape(-1) - first
+    present = (local >= 0) & (local < n_experts)
+    flat = torch.where(present, local, n_experts)   # absent: sorted last
+    if absent is not None:
+        absent += (~present).sum()
+    counts = torch.bincount(flat, minlength=n_experts + 1)[:n_experts]
     offsets = torch.zeros(n_experts + 1, dtype=torch.int64, device=ids.device)
     offsets[1:] = torch.cumsum(counts, 0)
     order = torch.sort(flat, stable=True).indices
     inv = torch.empty_like(order)
     inv[order] = torch.arange(len(order), device=ids.device)
+    inv[~present] = -1
     if load is not None:
         load += counts
     return Routing(offsets.int(), order.int(), inv.int(),
@@ -112,17 +129,19 @@ def expert_down_plain(hmid: torch.Tensor, routing: Routing, w_d: torch.Tensor,
 def combine_plain(y: torch.Tensor, routing: Routing, shared: torch.Tensor,
                   k: int) -> torch.Tensor:
     n = shared.shape[0]
-    rows = y[routing.inv.long()].view(n, k, -1).float()
+    inv = routing.inv.long()
+    rows = y[inv.clamp_min(0)].view(n, k, -1).float()
+    rows = torch.where((inv >= 0).view(n, k, 1), rows, 0.0)
     acc = rows[:, 0]
     for j in range(1, k):
         acc = acc + rows[:, j]
     return (acc.to(y.dtype).float() + shared.float()).to(shared.dtype)
 
 
-def routed_experts_plain(x, ids, weights, w_gu, w_d, shared,
-                         load=None) -> torch.Tensor:
+def routed_experts_plain(x, ids, weights, w_gu, w_d, shared, load=None,
+                         first=0, absent=None) -> torch.Tensor:
     k = ids.shape[1]
-    routing = route_plain(ids, w_gu.shape[0], load)
+    routing = route_plain(ids, w_gu.shape[0], load, first, absent)
     hmid = expert_up_plain(x, routing, w_gu, k)
     return combine_plain(expert_down_plain(hmid, routing, w_d, weights),
                          routing, shared, k)
@@ -132,11 +151,13 @@ def routed_experts_plain(x, ids, weights, w_gu, w_d, shared,
 
 
 def route(ids: torch.Tensor, n_experts: int,
-          load: Optional[torch.Tensor] = None) -> Routing:
-    """ids [N, k] int64 expert ids → ``Routing``; ``load`` ([E] int64)
-    gains each expert's slot count."""
+          load: Optional[torch.Tensor] = None, first: int = 0,
+          absent: Optional[torch.Tensor] = None) -> Routing:
+    """ids [N, k] int64 expert ids → ``Routing`` over the ``n_experts``
+    held from ``first``; ``load`` ([E] int64) gains each held expert's
+    slot count, ``absent`` ([1] int64) the absent slots."""
     if not _on_card(ids, "route"):
-        return route_plain(ids, n_experts, load)
+        return route_plain(ids, n_experts, load, first, absent)
     dev = ids.device
     cuda_lib.check_cuda("ids", ids, torch.int64, dev)
     if load is not None:
@@ -144,15 +165,23 @@ def route(ids: torch.Tensor, n_experts: int,
         if load.shape != (n_experts,):
             raise ValueError(f"load is {tuple(load.shape)}, expected "
                              f"({n_experts},)")
+    if absent is None:
+        absent = torch.zeros(1, dtype=torch.int64, device=dev)
+    # one counter, added to by atomics: no vector access to align for
+    if (absent.device != dev or absent.dtype != torch.int64
+            or absent.shape != (1,)):
+        raise ValueError(f"absent is {absent.dtype} {tuple(absent.shape)} "
+                         f"on {absent.device}, expected int64 (1,) on {dev}")
     n_slots = ids.numel()
     offsets = torch.empty(n_experts + 1, dtype=torch.int32, device=dev)
     order = torch.empty(n_slots, dtype=torch.int32, device=dev)
     inv = torch.empty(n_slots, dtype=torch.int32, device=dev)
     work = torch.empty(2, dtype=torch.int32, device=dev)
     cuda_lib.launch("moe_route", "srt_moe_route", dev, ids.data_ptr(),
-                    n_slots, n_experts, offsets.data_ptr(), order.data_ptr(),
-                    inv.data_ptr(), None if load is None else load.data_ptr(),
-                    work.data_ptr())
+                    n_slots, n_experts, first, offsets.data_ptr(),
+                    order.data_ptr(), inv.data_ptr(),
+                    None if load is None else load.data_ptr(),
+                    absent.data_ptr(), work.data_ptr())
     return Routing(offsets, order, inv, work)
 
 
@@ -211,7 +240,7 @@ def expert_down(hmid: torch.Tensor, routing: Routing, w_d: torch.Tensor,
 def combine(y: torch.Tensor, routing: Routing, shared: torch.Tensor,
             k: int) -> torch.Tensor:
     """y [N * k, H] in sorted order, shared [N, H] → [N, H]: each token's
-    k rows summed in slot order, plus its shared row."""
+    present rows of its k summed in slot order, plus its shared row."""
     if not _on_card(y, "combine"):
         return combine_plain(y, routing, shared, k)
     dev = y.device
@@ -232,17 +261,20 @@ def combine(y: torch.Tensor, routing: Routing, shared: torch.Tensor,
 
 def routed_experts(x: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
                    w_gu: torch.Tensor, w_d: torch.Tensor, shared: torch.Tensor,
-                   load: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   load: Optional[torch.Tensor] = None, first: int = 0,
+                   absent: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [N, H]; ids [N, k] int64 and weights [N, k] f32 (the router's
     choice); shared [N, H] (the shared experts' output) → [N, H]:
-    ``sum_j weights[:, j] * E_{ids[:, j]}(x) + shared``. ``load`` [E]
-    int64 gains each expert's slot count."""
+    ``sum_j weights[:, j] * E_{ids[:, j]}(x) + shared`` over the slots
+    whose expert is held (the E of ``w_gu`` from ``first``).
+    ``load`` [E] int64 gains each held expert's slot count, ``absent`` [1]
+    int64 the slots routed elsewhere."""
     n_e = w_gu.shape[0]
     if n_e > MAX_EXPERTS:
         raise NotImplementedError(f"{n_e} routed experts: the kernels take "
                                   f"at most {MAX_EXPERTS}")
     k = ids.shape[1]
-    routing = route(ids, n_e, load)
+    routing = route(ids, n_e, load, first, absent)
     hmid = expert_up(x, routing, w_gu, k)
     return combine(expert_down(hmid, routing, w_d, weights), routing, shared,
                    k)

@@ -36,8 +36,7 @@ import torch
 from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 from torch.distributed.tensor import DTensor, Shard
 
-from scaling_retriever_tpu_torch.models.deepseek_v2 import \
-    DeepseekV2BiForMNTP
+from scaling_retriever_tpu_torch.models.deepseek_v2 import InferenceOnly
 from scaling_retriever_tpu_torch.models.llama import LlamaBiForMNTP
 from scaling_retriever_tpu_torch.models.t5 import T5ForConditionalGeneration
 from scaling_retriever_tpu_torch.models.weights import _BIASES, _MATS
@@ -219,9 +218,8 @@ def apply_shardings(params, shardings: dict):
     """``params`` (module or nested dict) on the mesh's device, each tensor
     with its spec in the port's axis order as ``sharding_spec``. A dict's
     tensor that moves keeps its ``requires_grad``."""
-    if isinstance(params, DeepseekV2BiForMNTP):
-        raise NotImplementedError("DeepSeek-V2 runs inference only in the "
-                                  "port, on one card: it takes no sharding")
+    if isinstance(params, InferenceOnly):
+        params.refuse("sharding")
     flat = dict(_flatten(shardings))
     if not flat:
         return params

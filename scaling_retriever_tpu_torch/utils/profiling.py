@@ -22,18 +22,28 @@ record.
 
 Names carry their layer: ``frontend.*``, ``encoder.*``, ``engine.*``,
 ``train.*``.
+
+The reference's hooks are here too: with ``$SRT_PROFILE_DIR`` set
+(``profiling_enabled()``), or ``profile_dir`` given, a span that opens
+while no profiler session runs runs its own and writes a Chrome trace of
+its duration to ``<dir>/<name>/trace.json`` (a span opened inside a
+session records into it, as any span does); ``annotate(name)`` is a
+named region of the trace.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from time import time_ns
 from typing import Optional
 
+import torch
 from torch.autograd import profiler as _autograd_profiler
-from torch.profiler import record_function
+from torch.profiler import ProfilerActivity, profile, record_function
 
 MAX_RECORDS = 1 << 18
+_PROFILE_DIR = os.environ.get("SRT_PROFILE_DIR")
 
 _lock = threading.Lock()
 _totals: dict = {}        # name -> [count, total ns, max ns]
@@ -66,20 +76,38 @@ def _append(rec: tuple) -> None:
             _dropped += 1
 
 
+def profiling_enabled() -> bool:
+    """Whether ``$SRT_PROFILE_DIR`` asks every span for a trace."""
+    return _PROFILE_DIR is not None
+
+
+def annotate(name: str) -> record_function:
+    """A named region in the profiler's trace (a context manager)."""
+    return record_function(name)
+
+
 class profile_span:
-    """A span named ``name`` whose record carries ``attrs``; see the
+    """A span named ``name`` whose record carries ``attrs``; with
+    ``profile_dir`` (or ``$SRT_PROFILE_DIR``) it traces itself. See the
     module's docstring."""
 
-    __slots__ = ("name", "attrs", "t0", "t1", "_region", "_parent")
+    __slots__ = ("name", "attrs", "t0", "t1", "_region", "_parent", "_dir",
+                 "_prof")
 
-    def __init__(self, name: str, **attrs):
+    def __init__(self, name: str, profile_dir: Optional[str] = None,
+                 **attrs):
         self.name = name
         self.attrs = attrs
         self._region = None
+        self._dir = profile_dir or _PROFILE_DIR
+        self._prof = None
 
     # the stamps enclose the profiler's own region, whose first entry on a
     # thread takes ~1 ms after the profiler's start stamp
     def __enter__(self) -> "profile_span":
+        if self._dir and not _autograd_profiler._is_profiler_enabled:
+            self._prof = _own_session()
+            self._prof.__enter__()
         self.t0 = time_ns()
         if _autograd_profiler._is_profiler_enabled:
             stack = _open()
@@ -111,10 +139,24 @@ class profile_span:
             _open().pop()
             _append((self.name, self.t0, t1, threading.get_native_id(),
                      self._parent, self.attrs))
+        if self._prof is not None:
+            self._prof.__exit__(None, None, None)
+            out = os.path.join(self._dir, self.name)
+            os.makedirs(out, exist_ok=True)
+            self._prof.export_chrome_trace(os.path.join(out, "trace.json"))
+            self._prof = None
 
     @property
     def seconds(self) -> float:
         return (self.t1 - self.t0) / 1e9
+
+
+def _own_session() -> profile:
+    """A profiler session of the host, and of the card where there is one."""
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
 
 
 def record(name: str, start_ns: int, end_ns: int, **attrs) -> None:

@@ -1,8 +1,9 @@
 """The benchmark's architecture seam in tier-1's reach: the cases of
-``retrieval_bench/tests/test_rb_archs.py`` (collected here as they are),
-and each configuration's arch module, DeepSeek-V2's included, defining
-what the kinds of its cells call, and nothing a kind it has no cell of
-would need in its place."""
+``retrieval_bench/tests/test_rb_archs.py`` and
+``retrieval_bench/tests/test_rb_kimi_linear.py`` (collected here as they
+are), and each configuration's arch module, DeepSeek-V2's and
+Kimi-Linear's included, defining what the kinds of its cells call, and
+nothing a kind it has no cell of would need in its place."""
 
 from __future__ import annotations
 
@@ -18,6 +19,9 @@ from retrieval_bench.tests.test_rb_archs import (  # noqa: F401
     test_the_decoder_encoder_holds_the_drawn_weights_bit_for_bit,
     test_the_decoder_flops_are_unchanged,
     test_the_run_is_judged_against_the_configuration_s_reference)
+from retrieval_bench.tests.test_rb_kimi_linear import (  # noqa: F401
+    test_a_port_without_kimi_linear_ends_the_run_at_its_arch,
+    test_kda_ops_and_bytes_by_hand, test_the_held_share_of_experts_by_hand)
 
 BENCH = run.load_json(run.ROOT, "BENCHMARK.json")
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -35,7 +39,7 @@ def test_every_cell_s_arch_defines_what_its_kind_calls(cell):
     arch, kind, conf = _arch_and_kind(cell)
     for name in getattr(kind, "ARCH", ()):
         assert callable(getattr(arch, name)), (cell, name)
-    assert conf["arch"] in ("bidir_decoder", "deepseek_v2")
+    assert conf["arch"] in ("bidir_decoder", "deepseek_v2", "kimi_linear")
 
 
 def test_the_deepseek_cell_takes_its_own_arch_and_no_training():

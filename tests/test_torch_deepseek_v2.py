@@ -344,7 +344,7 @@ def test_a_checkpoint_short_of_an_expert_is_refused(tmp_path):
     tensors = _hf_named(TINY, SEED)
     del tensors["model.layers.2.mlp.experts.5.up_proj.weight"]
     with pytest.raises(ValueError, match="lacks 1 tensors"):
-        hf_loader.dsv2_params_from_hf_tensors(
+        hf_loader.params_from_hf_tensors(
             tensors, ModelConfig.from_hf_config(TINY, **F32), "cpu")
 
 

@@ -173,16 +173,21 @@ def test_registry_matches_reference():
         encoder.MODEL_REGISTRY[key]
         ref_encoder.MODEL_REGISTRY[key]
     want = dict(ref_encoder.MODEL_REGISTRY)
-    # DeepSeek-V2 is the port's own family (no counterpart in the JAX
-    # package): every other key matches the reference's
+    # DeepSeek-V2 and Kimi-Linear are the port's own families (no
+    # counterpart in the JAX package): every other key matches the
+    # reference's
     port_only = {("deepseek_v2", "sparse", "nce"):
                  encoder.DeepseekV2BiSparse,
-                 ("deepseek_v2", "dense", "nce"): encoder.DeepseekV2BiDense}
+                 ("deepseek_v2", "dense", "nce"): encoder.DeepseekV2BiDense,
+                 ("kimi_linear", "sparse", "nce"): encoder.KimiLinearBiSparse,
+                 ("kimi_linear", "dense", "nce"): encoder.KimiLinearBiDense}
+    base = {"deepseek_v2": "DeepseekV2BiForMNTP",
+            "kimi_linear": "KimiLinearBiForMNTP"}
     assert set(encoder.MODEL_REGISTRY) == set(want) | set(port_only)
     for key, cls in port_only.items():
         assert encoder.MODEL_REGISTRY[key] is cls
         assert (cls.MODEL_TYPE, cls.POOLING, cls.BASE_MODEL_CLASS) == (
-            "deepseek_v2", key[1], "DeepseekV2BiForMNTP")
+            key[0], key[1], base[key[0]])
     assert set(t5_keys) <= set(want)
     for key, cls in want.items():
         port = encoder.MODEL_REGISTRY[key]

@@ -150,3 +150,59 @@ def test_one_captured_graph_serves_every_routing(cuda, n):
         torch.cuda.synchronize()
         assert torch.equal(out, want), routing
     assert int(load.sum()) == len(routings) * n * K
+
+
+# Kimi-Linear's expert layer as one card of four holds it: 64 of the
+# router's 256 experts (ids 64-127 here), top-8, hidden 2,304, width 1,024
+KH, KI, KE, KK, KFIRST = 2304, 1024, 64, 8, 64
+
+
+def _share_ids(n: int, g: torch.Generator, dev, routing=None):
+    """Top-8 of 256 as the router gives them; ``pad`` sends a quarter of
+    the tokens alike, half of their experts held here."""
+    scores = torch.rand(n, 4 * KE, generator=g, device=dev)
+    if routing == "pad":
+        scores[:n // 4, KFIRST - 4:KFIRST + 4] += 2.0
+    return torch.topk(scores, KK, dim=1).indices
+
+
+@pytest.mark.parametrize("n,routing", [(512, None), (4096, None),
+                                       (4096, "pad"), (7, None)])
+def test_a_held_share_routes_and_combines_as_the_plain_path(cuda, n,
+                                                            routing):
+    """Route, the products and the combine over a held share: present
+    slots only (offsets, their order and inverse bit for bit), absent
+    slots -1 and counted, and the layer within bf16 roundings of the
+    plain path; the combine bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(200 + n)
+    ids = _share_ids(n, g, cuda, routing)
+    load = torch.zeros(KE, dtype=torch.int64, device=cuda)
+    absent = torch.zeros(1, dtype=torch.int64, device=cuda)
+    want_load = torch.zeros_like(load)
+    want_absent = torch.zeros_like(absent)
+    r = moe.route(ids, KE, load, KFIRST, absent)
+    p = moe.route_plain(ids, KE, want_load, KFIRST, want_absent)
+    present = int(p.offsets[-1])
+    assert torch.equal(r.offsets, p.offsets) and torch.equal(r.inv, p.inv)
+    assert torch.equal(r.order[:present], p.order[:present])
+    assert torch.equal(load, want_load) and torch.equal(absent, want_absent)
+    assert int(absent) + present == n * KK and int(absent) > 0
+    w = torch.rand(n, KK, generator=g, device=cuda) * 0.2
+    x = torch.randn(n, KH, generator=g, device=cuda).to(torch.bfloat16)
+    shared = (torch.randn(n, KH, generator=g, device=cuda) * 0.1
+              ).to(torch.bfloat16)
+    w_gu = (torch.randn(KE, 2 * KI, KH, generator=g, device=cuda) * 0.02
+            ).to(torch.bfloat16)
+    w_d = (torch.randn(KE, KH, KI, generator=g, device=cuda) * 0.02
+           ).to(torch.bfloat16)
+    hmid = moe.expert_up(x, r, w_gu, KK)
+    _close(hmid[:present], moe.expert_up_plain(x, r, w_gu, KK)[:present],
+           "up")
+    y = moe.expert_down(hmid, r, w_d, w)
+    _close(y[:present], moe.expert_down_plain(hmid, r, w_d, w)[:present],
+           "down")
+    assert torch.equal(moe.combine(y, r, shared, KK),
+                       moe.combine_plain(y, r, shared, KK))
+    _close(moe.routed_experts(x, ids, w, w_gu, w_d, shared, first=KFIRST),
+           moe.routed_experts_plain(x, ids, w, w_gu, w_d, shared,
+                                    first=KFIRST), "layer")

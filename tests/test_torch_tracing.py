@@ -443,3 +443,46 @@ def test_the_graph_share_reads_every_replayed_tile(monkeypatch):
     assert reader.read(_rec()) == 100.0
     monkeypatch.setattr(profiling, "_records", tiles)
     assert reader.read(_rec()) is None
+
+
+def _public(module) -> set:
+    """The functions and classes a module defines for others to use."""
+    return {n for n, v in vars(module).items()
+            if not n.startswith("_") and callable(v)
+            and getattr(v, "__module__", None) == module.__name__}
+
+
+def test_the_port_keeps_the_reference_s_profiling_api():
+    import inspect
+
+    from scaling_retriever_tpu.utils import profiling as ref
+
+    assert _public(ref) <= _public(profiling)
+    assert {"profiling_enabled", "annotate", "profile_span"} <= _public(ref)
+    for name in ("profile_span", "annotate"):
+        want = list(inspect.signature(getattr(ref, name)).parameters)
+        got = list(inspect.signature(getattr(profiling, name)).parameters)
+        assert got[:len(want)] == want, name
+    assert profiling.profiling_enabled() == (
+        os.environ.get("SRT_PROFILE_DIR") is not None)
+
+
+def test_a_span_given_a_directory_writes_its_own_trace(tmp_path):
+    with profile_span("trace.me", profile_dir=str(tmp_path), rows=3) as sp:
+        with profiling.annotate("inner.region"):
+            torch.ones(4).sum()
+    assert sp.attrs == {"rows": 3}
+    path = tmp_path / "trace.me" / "trace.json"
+    text = path.read_text()
+    assert "trace.me" in text and "inner.region" in text
+    # the span's own session has ended: its record stayed in it
+    assert not profiling.tracing()
+    assert profiling.timings()["trace.me"]["count"] >= 1
+
+
+def test_a_span_inside_a_session_records_into_it(tmp_path):
+    with session():
+        with profile_span("inner.dir", profile_dir=str(tmp_path)):
+            pass
+    assert names(profiling.spans()) == ["inner.dir"]
+    assert not (tmp_path / "inner.dir").exists()
